@@ -7,22 +7,30 @@ Needs one CUDA device; exits non-zero without one, or when any phase fails.
 Phases, one line each:
 
 1. build   — compile ``lmsf_slam_tpu_torch/csrc/knn.cu`` with nvcc for
-             sm_90a (into ``build/kernels/``) and print ptxas' register and
-             shared-memory summary;
-2. kernel  — hold the k-NN kernel against its plain torch version
-             (``knn_reference``) on the card at the slice's shapes (384×8192
-             and 1536×16384 at k=5, k=1, a masked non-tile-multiple case, k
-             above the number of valid references) and time kernel, plain
-             version and ``torch.cdist`` + ``torch.topk`` (a yardstick the
-             port never calls) with CUDA events;
+             sm_90a (into ``build/kernels/``) and print ptxas' register,
+             shared-memory and spill summary;
+2. kernel  — hold the k-NN kernels (``knn_cuda``: the scan over reference
+             slices and the merge) against the plain torch version of the
+             whole function (``knn_plain``) on the card: at the slice's
+             shapes (384×8192 and 1536×16384 at k=5, 1920×24576 at k=1) and
+             at the corner cases (masked queries, a size that is no multiple
+             of slice or tile, duplicated references, Q=1, N=1, no valid
+             reference, no valid query, k above the number of valid
+             references with several slices). The small cases must also equal
+             a single ascending scan ordered by (d, idx) bit for bit, and the
+             result must not change with the number of slices or lanes. Then
+             time kernels, plain version and ``torch.cdist`` + ``torch.topk``
+             (a yardstick the port never calls) with CUDA events, beside the
+             bound and the time of an empty launch;
 3. slice   — 60 frames of a simulated VLP-16 course through
              ``build_fused_step(SystemConfig(), "cuda")`` and the keyframe
              gate at the default widths, one read-back per frame; checks the
              poses are finite, the ATE against ground truth, that every
-             association went through the kernel (launch counter), and that
+             association went through the kernels (launch counters), and that
              the first 10 frames agree with the same run on the CPU;
-4. profile — ``torch.profiler`` over 10 frames: device time per frame and the
-             kernels that take it.
+4. profile — ``torch.profiler`` over 10 frames: device time and device events
+             per frame and the kernels that take the time, beside what the
+             earlier one-thread-a-query kernel read.
 
 Then the card's name and power limit, one JSON line of kernel numbers, and
 the result line ``{"ok": true, "device": {...}}`` last.
@@ -51,6 +59,12 @@ ATE_LIMIT = 0.15  # m, the reference system test's threshold
 CPU_AGREE = 1e-3  # m / quaternion component, card vs CPU over the first frames
 KNN_PER_FRAME = 10  # 5 associations × (edge + surf) at the default cadence
 
+# What the profile phase read on the earlier one-thread-a-query kernel, whose
+# wrapper rescored and sorted with torch ops (NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's numbers.
+EARLIER_KNN_MS_PER_FRAME = 4.78
+EARLIER_EVENTS_PER_FRAME = 6722
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -65,8 +79,14 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, iters):
-    """Mean milliseconds of ``fn`` on the card (CUDA events, after warm-up)."""
+def cuda_ms(fn, iters, queued=True):
+    """Mean milliseconds of ``fn`` on the card (CUDA events, after warm-up).
+
+    With ``queued`` the launches are enqueued behind a spinning kernel, so the
+    host runs ahead and the events bracket back-to-back device work: the time
+    is the device's, not the pace at which Python enqueues launches. Without it
+    the time is whichever of the two is slower, as a caller in a loop sees it.
+    """
     import torch
 
     for _ in range(3):
@@ -74,6 +94,8 @@ def cuda_ms(fn, iters):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(30_000_000)  # ~17 ms at 1.75 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -83,44 +105,72 @@ def cuda_ms(fn, iters):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: the k-NN kernel against its plain version
+# phase 2: the k-NN kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 
-def knn_case(Q, N, q_invalid, r_valid_frac, seed, dev):
+def knn_case(Q, N, q_invalid, r_valid, seed, dev, dup=False):
+    """Inputs from a seed. ``r_valid`` is a fraction of valid references, or
+    an integer count of them. With ``dup`` every reference point is present
+    four times, spread over the whole index range."""
     import torch
 
     g = np.random.default_rng(seed)
-    q = torch.as_tensor(g.standard_normal((Q, 3)) * 15.0, dtype=torch.float32, device=dev)
-    r = torch.as_tensor(g.standard_normal((N, 3)) * 15.0, dtype=torch.float32, device=dev)
+    q = g.standard_normal((Q, 3)) * 15.0
+    r = g.standard_normal((N, 3)) * 15.0
+    if dup:
+        r = np.concatenate([r[: N // 4]] * 4)[g.permutation(4 * (N // 4))]
+    if isinstance(r_valid, int):
+        rm = np.zeros(r.shape[0], dtype=bool)
+        rm[g.choice(r.shape[0], r_valid, replace=False)] = True
+    else:
+        rm = g.random(r.shape[0]) < r_valid
+    q = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    r = torch.as_tensor(r, dtype=torch.float32, device=dev)
     qm = torch.arange(Q, device=dev) >= q_invalid
-    rm = torch.as_tensor(g.random(N) < r_valid_frac, device=dev)
-    return q, qm, r, rm
+    return q, qm, r, torch.as_tensor(rm, device=dev)
 
 
-def compare_knn(K, q, qm, r, rm, k):
-    """Kernel vs plain version on the same inputs, both through the shared
-    rescore tail. Returns (max |Δd| over agreeing rows, near-tie rows).
+def compare_knn(K, q, qm, r, rm, k, exact_model=False, dup=False, **kernel_args):
+    """The whole function on the card: ``knn_cuda`` (the kernels) against
+    ``knn_plain`` on the same inputs. Returns (max |Δd| over agreeing rows,
+    near-tie rows).
 
-    Distances must agree to rtol 1e-5 / atol 1e-5, and indices wherever a
-    distance differs from its neighbours by more than 1e-6 relative. The
-    plain version ranks by the expansion |q|²+|p|²−2q·p, whose float32
-    rounding is up to ~8·2⁻²³·(|q|²+max|p|²); a row may differ only where
-    the kernel's exact distances are no worse than the plain version's by
-    more than that bound (a near-tie the expansion cannot resolve).
+    Distances must agree to rtol 1e-6: the kernel sums (dx² + dy²) + dz² with
+    every product and sum rounded, the plain version through ``torch.sum``,
+    so they may differ by the summation order of three terms (2–3 float32
+    ulps). Indices must agree wherever a distance differs from its neighbours
+    by more than 1e-6 relative. The plain version picks its candidates by the
+    expansion |q|²+|p|²−2q·p, whose float32 rounding is up to
+    ~8·2⁻²³·(|q|²+max|p|²); a row may differ only where the kernel's exact
+    distances are no worse than the plain version's by more than that bound (a
+    near-tie the expansion cannot resolve). Empty slots and masked queries
+    must hold INF and index 0. With ``dup`` (references present several
+    times) the plain version's ``topk`` may keep any copy of the point at the
+    cut, so the neighbours' coordinates are compared there and the indices
+    are left to the model below.
+
+    With ``exact_model`` the kernels must also equal
+    ``knn_split_merge_plain(splits=1, lanes=1)`` — one ascending scan ordered
+    by (d, idx), with the kernel's own rounding — bit for bit, ties included.
     """
     import torch
 
-    d_k, i_k = K.rescore(q, qm, r, *K.knn_candidates_cuda(q, r, rm, k))
-    d_r, i_r = K.rescore(q, qm, r, *K.knn_reference(q, r, rm, k))
+    d_k, i_k, _ = K.knn_cuda(q, qm, r, rm, k, **kernel_args)
+    d_r, i_r = K.knn_plain(q, qm, r, rm, k)
     torch.cuda.synchronize()
-    close = torch.abs(d_k - d_r) <= 1e-5 + 1e-5 * torch.abs(d_r)
+    check(d_k.shape == d_r.shape and i_k.dtype == torch.int32, "knn output shape or type")
+    empty = d_k >= 1e30
+    check(bool((i_k[empty] == 0).all()) and bool((d_k[empty] == K.INF).all()),
+          "an empty slot does not hold INF and index 0")
+    check(bool(empty[~qm].all()), "a masked query has a neighbour")
+    close = torch.abs(d_k - d_r) <= 1e-6 * torch.abs(d_r)
     row_ok = close.all(dim=1)
     pmax = torch.max(torch.where(rm, torch.sum(r * r, dim=1), 0.0))
     tie_tol = 8.0 * 2.0**-23 * (torch.sum(q * q, dim=1) + pmax)
     tie_row = ~row_ok & (d_k <= d_r + tie_tol[:, None]).all(dim=1)
     n_bad = int((~row_ok & ~tie_row).sum())
-    check(n_bad == 0, f"knn kernel disagrees with knn_reference on {n_bad} rows")
+    check(n_bad == 0, f"knn kernel disagrees with knn_plain on {n_bad} rows")
     n_tie = int(tie_row.sum())
     check(n_tie <= max(2, q.shape[0] // 100), f"too many near-tie rows: {n_tie}")
     big = torch.full_like(d_r[:, :1], float("inf"))
@@ -128,7 +178,15 @@ def compare_knn(K, q, qm, r, rm, k):
     gap_next = torch.cat([d_r[:, 1:] - d_r[:, :-1], big], dim=1)
     rel = 1e-6 * torch.clamp(torch.abs(d_r), min=1e-30)
     distinct = (gap_prev > rel) & (gap_next > rel) & (d_r < 1e30) & row_ok[:, None]
-    check(bool(torch.equal(i_k[distinct], i_r[distinct])), "knn indices disagree")
+    if dup:
+        check(bool(torch.equal(r[i_k.long()][distinct], r[i_r.long()][distinct])),
+              "knn neighbours disagree")
+    else:
+        check(bool(torch.equal(i_k[distinct], i_r[distinct])), "knn indices disagree")
+    if exact_model:
+        d_m, i_m = K.knn_split_merge_plain(q, qm, r, rm, k, splits=1, lanes=1)
+        check(torch.equal(d_k, d_m) and torch.equal(i_k, i_m),
+              "knn kernel differs from the single-scan model (ties or rounding)")
     finite = (d_r < 1e30) & row_ok[:, None]
     err = float(torch.max(torch.where(finite, torch.abs(d_k - d_r), 0.0))) if finite.any() else 0.0
     return err, n_tie
@@ -137,11 +195,21 @@ def compare_knn(K, q, qm, r, rm, k):
 def knn_bound_ms(Q, n_valid, N, k):
     """Least time on the card: the larger of the FP32 work the inputs need
     (Q × valid refs × 8 operations: 3 sub, 3 mul, 2 add) and the bytes
-    (queries and refs read once, the (Q,k) distances and indices written
-    once)."""
+    (queries, references and both masks read once, the (Q,k) distances and
+    indices written once)."""
     ops = 8.0 * Q * n_valid
-    nbytes = Q * 12 + N * 12 + N * 1 + Q * k * 8
+    nbytes = Q * 12 + Q + N * 12 + N + Q * k * 8
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def merge_bound_ms(Q, S, k):
+    """Least time of the merge alone: the (Q,S,k) partial lists and the query
+    mask read once, the (Q,k) outputs written once, against one comparison
+    for each partial entry."""
+    nbytes = Q * S * k * 8 + Q + Q * k * 8
+    t_ops = Q * S * k / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -150,43 +218,123 @@ def phase_kernel(K):
     import torch
 
     dev = torch.device("cuda")
+    tq = K.THREADS // K.LANES
+    log("kernel", f"design: {K.THREADS} threads a block, {K.LANES} lanes a query "
+        f"({tq} queries a block), tiles of {K.TILE} references, merge with "
+        f"{K.MERGE_LANES} lanes a query; slices of at most {K.MAX_SLICE}, at least "
+        f"{K.MIN_SLICE}, grid of at least {K.TARGET_BLOCKS} blocks")
+    empty_ms = cuda_ms(K.empty_launch_cuda, 200)
+    empty_call_ms = cuda_ms(K.empty_launch_cuda, 200, queued=False)
+    log("kernel", f"empty kernel launch: {empty_ms:.5f} ms back to back on the device, "
+        f"{empty_call_ms:.5f} ms a call at Python's pace (the practical floor "
+        "beside the arithmetic bound)")
+
     cases = [
-        # name, Q, N, k, invalid queries, fraction of valid refs
-        ("edge 384x8192 k=5", 384, 8192, 5, 0, 0.7),
-        ("surf 1536x16384 k=5", 1536, 16384, 5, 0, 0.7),
-        ("nn1 1920x24576 k=1", 1920, 24576, 1, 0, 0.7),
-        ("masked 77x333 k=5", 77, 333, 5, 7, 0.9),
-        ("k>valid 40x300 k=8", 40, 300, 8, 5, 5 / 300),
+        # name, Q, N, k, invalid queries, valid refs (fraction or count), dup, forced S
+        ("edge 384x8192 k=5", 384, 8192, 5, 0, 0.7, False, None),
+        ("surf 1536x16384 k=5", 1536, 16384, 5, 0, 0.7, False, None),
+        ("nn1 1920x24576 k=1", 1920, 24576, 1, 0, 0.7, False, None),
+        ("masked 77x333 k=5", 77, 333, 5, 7, 0.9, False, None),
+        ("k>valid 40x300 k=8", 40, 300, 8, 5, 5, False, None),
+        ("ties 300x4096 k=8 S=5", 300, 4096, 8, 3, 0.8, True, 5),
+        ("Q=1 1x5000 k=5", 1, 5000, 5, 0, 0.8, False, None),
+        ("N=1 50x1 k=1", 50, 1, 1, 2, 1.0, False, None),
+        ("ragged 200x5000 k=5 S=3", 200, 5000, 5, 0, 0.8, False, 3),
+        ("no valid ref 64x1000 k=5 S=2", 64, 1000, 5, 0, 0, False, 2),
+        ("no valid query 64x1000 k=5 S=2", 64, 1000, 5, 64, 0.8, False, 2),
+        ("k>valid 40x3000 k=8 S=6", 40, 3000, 8, 5, 5, False, 6),
     ]
     results = {}
-    for i, (name, Q, N, k, qi, frac) in enumerate(cases):
-        q, qm, r, rm = knn_case(Q, N, qi, frac, seed=i, dev=dev)
-        err, n_tie = compare_knn(K, q, qm, r, rm, k)
-        row = {"Q": Q, "N": N, "k": k, "n_valid": int(rm.sum()), "max_abs_err": err,
-               "near_tie_rows": n_tie}
-        if name.startswith(("edge", "surf")):
-            def kern():
-                return K.knn_candidates_cuda(q, r, rm, k)
-
-            def plain():
-                return K.knn_reference(q, r, rm, k)
-
-            def lib():
-                d = torch.cdist(q, r).masked_fill(~rm[None, :], float("inf"))
-                return torch.topk(d, k, dim=1, largest=False)
-
-            # in turns (plain, kernel, library, kernel, plain) on one card
-            p1, k1, l1, k2, p2 = (cuda_ms(f, 50) for f in (plain, kern, lib, kern, plain))
-            bound, by = knn_bound_ms(Q, row["n_valid"], N, k)
-            row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=l1,
-                       bound_ms=bound, bound_by=by)
-            log("kernel", f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                f"cdist+topk {l1:.4f} ms, bound {bound:.6f} ms ({by}); "
-                f"max |Δd| {err:.3g}, near-tie rows {n_tie}")
-        else:
-            log("kernel", f"{name}: agrees with knn_reference; max |Δd| {err:.3g}, "
-                f"near-tie rows {n_tie}")
+    timed = {}
+    for i, (name, Q, N, k, qi, valid, dup, forced) in enumerate(cases):
+        q, qm, r, rm = knn_case(Q, N, qi, valid, seed=i, dev=dev, dup=dup)
+        S = forced if forced is not None else K.choose_splits(Q, N)
+        slice_len = K.slice_length(N, S)
+        blocks = -(-Q // tq) * S
+        small = N <= 5000
+        err, n_tie = compare_knn(K, q, qm, r, rm, k, exact_model=small, dup=dup, splits=S)
+        row = {"Q": Q, "N": N, "k": k, "n_valid": int(rm.sum()), "splits": S,
+               "slice_len": slice_len, "blocks": blocks, "max_abs_err": err,
+               "near_tie_rows": n_tie, "equals_single_scan_model": small}
         results[name] = row
+        if name.startswith(("edge", "surf", "nn1")):
+            timed[name] = (q, qm, r, rm, k)
+            continue
+        log("kernel", f"{name}: S={S} (slices of {slice_len}), {blocks} blocks; agrees with "
+            f"knn_plain, max |Δd| {err:.3g}, near-tie rows {n_tie}"
+            + ("; equal to the single-scan model, indices included" if small else ""))
+
+    for name in ("edge 384x8192 k=5", "surf 1536x16384 k=5"):
+        check(results[name]["blocks"] >= 264,
+              f"{name}: grid of {results[name]['blocks']} blocks, fewer than 264")
+
+    # the result does not depend on the split: other S and L, the same bits
+    q, qm, r, rm, k = timed["surf 1536x16384 k=5"]
+    d0, i0, nbr0 = K.knn_cuda(q, qm, r, rm, k, neighbors=True)
+    for splits, lanes in ((3, 4), (1, 8), (16, 4)):
+        d1, i1, _ = K.knn_cuda(q, qm, r, rm, k, splits=splits, lanes=lanes)
+        check(torch.equal(d0, d1) and torch.equal(i0, i1),
+              f"knn result changes with S={splits}, L={lanes}")
+    check(torch.equal(nbr0, r[i0.long()]), "the kernel's neighbour coordinates are not ref[idx]")
+    log("kernel", f"surf: S={results['surf 1536x16384 k=5']['splits']}, L={K.LANES} gives the "
+        "same distances and indices, bit for bit, as S=3 L=4, S=1 L=8 and S=16 L=4; the "
+        "neighbour coordinates equal ref[idx]")
+
+    for name, (q, qm, r, rm, k) in timed.items():
+        row = results[name]
+        Q, N, S = row["Q"], row["N"], row["splits"]
+
+        def kern():
+            return K.knn(q, qm, r, rm, k)
+
+        def kern_nbr():
+            return K.knn_with_neighbors(q, qm, r, rm, k)
+
+        def plain():
+            return K.knn_plain(q, qm, r, rm, k)
+
+        def lib():
+            d = torch.cdist(q, r).masked_fill(~rm[None, :], float("inf"))
+            return torch.topk(d, k, dim=1, largest=False)
+
+        # in turns (plain, kernel, library, kernel, plain) on one card
+        p1, k1, l1, k2, p2 = (cuda_ms(f, 50) for f in (plain, kern, lib, kern, plain))
+        bound, by = knn_bound_ms(Q, row["n_valid"], N, k)
+        row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=l1,
+                   bound_ms=bound, bound_by=by, call_ms=cuda_ms(kern, 50, queued=False),
+                   with_neighbors_ms=cuda_ms(kern_nbr, 50), empty_launch_ms=empty_ms)
+        log("kernel", f"{name}: S={S} (slices of {row['slice_len']}), L={K.LANES}, "
+            f"{row['blocks']} blocks; kernels {row['ms']:.4f} ms (with neighbour "
+            f"coordinates {row['with_neighbors_ms']:.4f} ms; {row['call_ms']:.4f} ms a call "
+            f"at Python's pace), plain {row['plain_ms']:.4f} ms, cdist+topk {l1:.4f} ms, "
+            f"bound {bound:.6f} ms ({by}), empty launch {empty_ms:.5f} ms; "
+            f"max |Δd| {row['max_abs_err']:.3g}, near-tie rows {row['near_tie_rows']}")
+
+    # the merge kernel alone, at the surf shape, against its plain version
+    q, qm, r, rm, k = timed["surf 1536x16384 k=5"]
+    S = results["surf 1536x16384 k=5"]["splits"]
+    part_d, part_i = K.knn_partial_cuda(q, qm, r, rm, k, S)
+    out = (torch.empty((q.shape[0], k), dtype=torch.float32, device=dev),
+           torch.empty((q.shape[0], k), dtype=torch.int32, device=dev), None)
+    K.knn_merge_cuda(part_d, part_i, qm, r, out)
+    d_m, i_m = K.merge_partials_plain(part_d, part_i, qm, k)
+    torch.cuda.synchronize()
+    check(torch.equal(out[0], d_m) and torch.equal(out[1], i_m.to(torch.int32)),
+          "knn merge kernel differs from merge_partials_plain")
+
+    def merge():
+        return K.knn_merge_cuda(part_d, part_i, qm, r, out)
+
+    def merge_plain():
+        return K.merge_partials_plain(part_d, part_i, qm, k)
+
+    mp1, m1, m2, mp2 = (cuda_ms(f, 50) for f in (merge_plain, merge, merge, merge_plain))
+    bound, by = merge_bound_ms(q.shape[0], S, k)
+    results["merge at surf"] = {
+        "Q": q.shape[0], "splits": S, "k": k, "max_abs_err": 0.0, "ms": (m1 + m2) / 2,
+        "plain_ms": (mp1 + mp2) / 2, "bound_ms": bound, "bound_by": by, "library_ms": None}
+    log("kernel", f"merge alone, {q.shape[0]}x{S}x{k}: equal to merge_partials_plain; kernel "
+        f"{(m1 + m2) / 2:.4f} ms, plain {(mp1 + mp2) / 2:.4f} ms, bound {bound:.6f} ms ({by})")
     return results
 
 
@@ -250,8 +398,9 @@ def phase_slice(traj, scans):
     ate = ate_stats(est, gt).rmse
     check(ate < ATE_LIMIT, f"ATE {ate:.4f} m ≥ {ATE_LIMIT} m")
     want = KNN_PER_FRAME * N_FRAMES
-    check(launches.get("knn", 0) == want,
-          f"knn launches {launches.get('knn', 0)} on the main path, expected {want}")
+    for name in ("knn", "knn_merge"):  # every association is split, so each has its merge
+        check(launches.get(name, 0) == want,
+              f"{name} launches {launches.get(name, 0)} on the main path, expected {want}")
 
     # the same port on the CPU (plain k-NN) over the first frames
     tc_cpu, step_cpu = build_fused_step(cfg, "cpu")
@@ -266,6 +415,7 @@ def phase_slice(traj, scans):
     ms = np.asarray(times) * 1e3
     out = {
         "frames": N_FRAMES, "ate_rmse_m": ate, "knn_launches": launches.get("knn", 0),
+        "knn_merge_launches": launches.get("knn_merge", 0),
         "frame_ms_median": float(np.median(ms)), "frame_ms_p90": float(np.percentile(ms, 90)),
         "frame_ms_first": float(ms[0]), "frame_ms_all": ms.tolist(),
         "cpu_frame_ms_median": float(np.median(np.asarray(times_cpu) * 1e3)),
@@ -276,7 +426,8 @@ def phase_slice(traj, scans):
     log("slice", f"{N_FRAMES} frames: ATE {ate:.4f} m (limit {ATE_LIMIT}); "
         f"ms/frame median {out['frame_ms_median']:.2f}, p90 {out['frame_ms_p90']:.2f} "
         f"(first {ms[0]:.1f}); knn launches {out['knn_launches']} "
-        f"({out['knn_launches'] / N_FRAMES:g}/frame); peak device memory "
+        f"({out['knn_launches'] / N_FRAMES:g}/frame), knn_merge launches "
+        f"{out['knn_merge_launches']}; peak device memory "
         f"{peak / 2**20:.1f} MiB; card vs CPU over {N_CPU_FRAMES} frames max |Δpose| "
         f"{dev_cpu:.3g}; keyframes {out['keyframes']}")
     return out
@@ -321,18 +472,39 @@ def phase_profile(scans, frame_ms):
         log("profile", "device time: not measured (the profiler reported none)")
         return {"device_ms_per_frame": None}
     total = sum(r[1] for r in rows)
-    knn_ms = sum(r[1] for r in rows if "knn_kernel" in r[0])
+    knn_ms = sum(r[1] for r in rows if "knn_partial_kernel" in r[0] or "knn_merge_kernel" in r[0])
     launches = sum(r[2] for r in rows)
+    check(knn_ms > 0, "the profile shows no k-NN kernel on the device")
+    check(launches < EARLIER_EVENTS_PER_FRAME,
+          f"{launches:g} device events a frame, not fewer than {EARLIER_EVENTS_PER_FRAME} "
+          "(the one-thread-a-query kernel)")
     top = "; ".join(f"{k[:48]} {ms:.3f} ms ×{c:g}" for k, ms, c in rows[:6])
     log("profile", f"per frame: device busy {total:.3f} ms = {100 * total / frame_ms:.1f}% of "
         f"the {frame_ms:.2f} ms median frame (idle {100 - 100 * total / frame_ms:.1f}%), "
-        f"{launches:g} device events; knn kernel {knn_ms:.3f} ms; profiled wall {wall:.2f} ms; "
-        f"top: {top}")
+        f"{launches:g} device events (one-thread-a-query kernel: {EARLIER_EVENTS_PER_FRAME}); knn kernels "
+        f"{knn_ms:.3f} ms (one-thread-a-query kernel: {EARLIER_KNN_MS_PER_FRAME}); profiled wall "
+        f"{wall:.2f} ms; top: {top}")
     return {"profiled_wall_ms_per_frame": wall, "device_ms_per_frame": total,
             "device_busy_share": total / frame_ms, "device_events_per_frame": launches,
             "knn_device_ms_per_frame": knn_ms,
             "kernels": [{"name": k, "ms_per_frame": ms, "calls_per_frame": c}
                         for k, ms, c in rows[:25]]}
+
+
+def ptxas_summary(lines):
+    """One line of the compiler's per-kernel resource report: the most
+    registers a thread, the most static shared memory, the spills."""
+    import re
+
+    text = " ".join(lines)
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    smem = [int(x) for x in re.findall(r"(\d+) bytes smem", text)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+    if not regs:
+        return " | ".join(lines)
+    return (f"{len(regs)} kernel instances, at most {max(regs)} registers a thread and "
+            f"{max(smem, default=0)} bytes of static shared memory; spill stores: "
+            f"{sum(spills)} bytes")
 
 
 def main(argv=None):
@@ -353,7 +525,7 @@ def main(argv=None):
     _build.build(["knn"])
     _build.load("knn")
     info = _build.build_info.get("knn", {"seconds": 0.0, "ptxas": ["already built"]})
-    log("build", f"knn.cu in {info['seconds']:.2f} s; " + " | ".join(info["ptxas"]))
+    log("build", f"knn.cu in {info['seconds']:.2f} s; " + ptxas_summary(info["ptxas"]))
 
     kernel = phase_kernel(K)
     traj, scans = make_course()
@@ -366,17 +538,37 @@ def main(argv=None):
     ).stdout.strip().splitlines()[0]
     surf = kernel["surf 1536x16384 k=5"]
     edge = kernel["edge 384x8192 k=5"]
+    nn1 = kernel["nn1 1920x24576 k=1"]
+    merge = kernel["merge at surf"]
+    timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "splits", "blocks",
+                  "with_neighbors_ms", "call_ms")
+    source = "lmsf_slam_tpu_torch/csrc/knn.cu"
+    replaces = "lmsf_slam_tpu/ops/pallas_knn.py:43"
     line = {"kernels": [{
         "name": "knn",
         "route": "cuda",
-        "source": "lmsf_slam_tpu_torch/csrc/knn.cu",
-        "replaces": "lmsf_slam_tpu/ops/pallas_knn.py:43",
+        "source": source,
+        "replaces": replaces,
         "launches": sl["knn_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": surf["ms"], "plain_ms": surf["plain_ms"], "bound_ms": surf["bound_ms"],
         "bound_by": surf["bound_by"], "library_ms": surf["library_ms"],
-        "shape": "1536x16384 k=5",
-        "edge_384x8192": {k: edge[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "shape": "1536x16384 k=5, scan and merge kernels together",
+        "empty_launch_ms": surf["empty_launch_ms"],
+        "lanes": K.LANES, "tile": K.TILE, "threads": K.THREADS,
+        "surf_1536x16384": {k: surf[k] for k in timed_keys},
+        "edge_384x8192": {k: edge[k] for k in timed_keys},
+        "nn1_1920x24576": {k: nn1[k] for k in timed_keys},
+    }, {
+        "name": "knn_merge",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": sl["knn_merge_launches"],
+        "max_abs_err": merge["max_abs_err"],
+        "ms": merge["ms"], "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
+        "bound_by": merge["bound_by"], "library_ms": merge["library_ms"],
+        "shape": f"{merge['Q']}x{merge['splits']}x{merge['k']} partial lists",
     }]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

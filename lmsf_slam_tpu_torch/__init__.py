@@ -9,9 +9,10 @@ per-frame step and the keyframe gate), ``datasets`` (ray-cast simulator) and
 ``evaluation`` (ATE).
 
 The one TPU kernel of the reference, the fused k-NN of
-``lmsf_slam_tpu/ops/pallas_knn.py``, is a hand-written CUDA kernel here
-(``csrc/knn.cu``), built with ``nvcc`` on first use and bound with ``ctypes``
-(:mod:`.ops.knn`). Everything else is plain torch.
+``lmsf_slam_tpu/ops/pallas_knn.py``, is a pair of hand-written CUDA kernels
+here (``csrc/knn.cu``: a scan over reference slices and a merge), built with
+``nvcc`` on first use and bound with ``ctypes`` (:mod:`.ops.knn`). Everything
+else is plain torch.
 
 Entry points take ``device=`` and default to ``"cuda"``; tests pass
 ``device="cpu"``, where each kernel wrapper takes its plain torch version.

@@ -82,7 +82,8 @@ def _finish_build(name: str, job) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     build_info[name] = {
         "seconds": time.perf_counter() - t0,
-        "ptxas": [ln.strip() for ln in log.splitlines() if "ptxas info" in ln],
+        "ptxas": [ln.strip() for ln in log.splitlines()
+                  if "ptxas info" in ln or "spill" in ln],
     }
 
 

@@ -1,15 +1,15 @@
 """Nearest-neighbour search.
 
 Counterpart of ``lmsf_slam_tpu/ops/neighbors.py``. ``knn``, ``nn1`` and
-``gather_neighbors`` go through the hand-written CUDA kernel on CUDA tensors
-(:mod:`.knn`); ``radius_count`` is plain torch for now (its count variant of
-the kernel is later work).
+``knn_with_neighbors`` go through the hand-written CUDA kernels on CUDA
+tensors (:mod:`.knn`); ``radius_count`` is plain torch for now (its count
+variant of the kernel is later work).
 """
 from __future__ import annotations
 
 import torch
 
-from .knn import INF, knn  # noqa: F401  (re-exported: the port's k-NN)
+from .knn import INF, knn, knn_with_neighbors  # noqa: F401  (re-exported: the port's k-NN)
 
 
 def nn1(query_xyz, query_mask, ref_xyz, ref_mask):

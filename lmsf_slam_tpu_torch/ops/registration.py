@@ -13,8 +13,9 @@ association iteration the new correspondences and projector are computed and
 So ``num_matches`` and ``final_cost`` are those of the LAST iteration, as in
 the reference, and the loop never reads a value back to the host (the 6×6
 ``torch.linalg.eigh`` of the projector is the one call that synchronises on
-CUDA). Association is the k-NN kernel (:mod:`.knn`): two launches per
-association, five associations per call at the default cadence.
+CUDA). Association is the k-NN kernel (:mod:`.knn`), which also writes the
+neighbours' coordinates on the card: two searches per association, five
+associations per call at the default cadence.
 """
 from __future__ import annotations
 
@@ -77,10 +78,10 @@ def _fit_neighbors(p_world, q_mask, map_pb: PointBatch, params):
     two float32 runs that differ only in that order (CPU vs card). In float64
     the same cases move by ~1e-12.
     """
-    dists, idx = neighbors.knn(
+    dists, _, nbr = neighbors.knn_with_neighbors(
         p_world, q_mask, map_pb.xyz, map_pb.mask, k=params.k_neighbors
     )
-    nbr, nvalid = neighbors.gather_neighbors(map_pb.xyz, idx, dists)
+    nvalid = dists < neighbors.INF
     return dists, p_world.to(torch.float64), nbr.to(torch.float64), nvalid
 
 

@@ -69,3 +69,33 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_every_entry_point_defaults_to_the_card():
+    """A function or method of the port that has a default for ``device``
+    defaults it to ``"cuda"``: the CPU is used only when the caller asks for
+    it. (Helpers that require the argument pass their caller's on.)"""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import lmsf_slam_tpu_torch as p
+
+    seen = []
+    for info in pkgutil.walk_packages(p.__path__, p.__name__ + "."):
+        mod = importlib.import_module(info.name)
+        members = []
+        for _, obj in inspect.getmembers(mod):
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                members.append(obj)
+            elif inspect.isclass(obj):
+                members += [f for _, f in inspect.getmembers(obj)
+                            if inspect.isfunction(f) or inspect.ismethod(f)]
+        for fn in members:
+            param = inspect.signature(fn).parameters.get("device")
+            if param is not None and param.default is not inspect.Parameter.empty:
+                seen.append(fn.__qualname__)
+                assert param.default == "cuda", (mod.__name__, fn.__qualname__, param.default)
+    assert len(seen) >= 9, seen  # build_fused_step, tracker_init, PointBatch.empty, ...

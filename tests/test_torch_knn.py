@@ -4,8 +4,8 @@ the reference's ``neighbors.knn`` and its Pallas kernel ``knn_pallas``
 ``tests/test_pallas_knn.py`` with its tolerances: distances rtol/atol 1e-5,
 indices equal wherever distances are distinct.
 
-On the CPU the port's ``knn`` takes its plain version (``knn_reference``);
-the CUDA kernel itself is held against that plain version on the card by
+On the CPU the port's ``knn`` takes its plain version (``knn_plain``); the
+CUDA kernels themselves are held against that plain version on the card by
 ``tests/test_torch_knn_cuda.py`` and by ``chip_smoke.py``.
 """
 import jax.numpy as jnp
@@ -100,9 +100,9 @@ def test_kernel_wrapper_refuses_cpu_and_bad_k():
     falls back (on a CPU tensor it raises before building anything)."""
     q, qm, r, rm = (torch.as_tensor(a) for a in _case(Q=8, N=16))
     with pytest.raises(ValueError, match="CUDA"):
-        pk.knn_candidates_cuda(q, r, rm, 5)
+        pk.knn_cuda(q, qm, r, rm, 5)
     assert "knn" not in _build._libs  # nothing was built or loaded
     if torch.cuda.is_available():
         with pytest.raises(ValueError, match="k"):
-            pk.knn_candidates_cuda(q.cuda(), r.cuda(), rm.cuda(), 9)
+            pk.knn_cuda(q.cuda(), qm.cuda(), r.cuda(), rm.cuda(), 9)
 
