@@ -12,7 +12,9 @@ Phases, one line each:
 2. kernel  — hold the k-NN kernels (``knn_cuda``: the scan over reference
              slices and the merge) against the plain torch version of the
              whole function (``knn_plain``) on the card: at the slice's
-             shapes (384×8192 and 1536×16384 at k=5, 1920×24576 at k=1) and
+             shapes (384×8192 and 1536×16384 at k=5, 1920×24576 at k=1; the
+             backend's local maps of 7, 10 and 11 keyframes: 384×2688,
+             384×3840, 384×4224, 1536×10752, 1536×15360, 1536×16896) and
              at the corner cases (masked queries, a size that is no multiple
              of slice or tile, duplicated references, Q=1, N=1, no valid
              reference, no valid query, k above the number of valid
@@ -30,7 +32,26 @@ Phases, one line each:
              the first 10 frames agree with the same run on the CPU;
 4. profile — ``torch.profiler`` over 10 frames: device time and device events
              per frame and the kernels that take the time, beside what the
-             earlier one-thread-a-query kernel read.
+             earlier one-thread-a-query kernel read;
+5. backend — the whole system at full width: 120 frames of a closed circle of
+             9 m radius (world of 30 m extent, 14 boxes, 24 cylinders; scans
+             16 × 900 to 60 m) through ``MultiLidarSystem(config).process`` on
+             ``cuda`` with the lifelong backend behind the keyframe gate
+             (keyframe database with its device mirror, scan-context loop
+             search, two-stage verification, windowed and full pose-graph
+             solves, the MAPPING / LOCALIZATION machine). Checks: finite
+             poses, at least one loop closed and MAPPING → LOCALIZATION after
+             it, a full solve (and a windowed one past 51 keyframes),
+             map-frame ATE under 0.15 m and no worse than odometry alone by
+             more than 0.01 m, every k-NN through the kernels, and the first
+             10 keyframes' map poses within 1e-3 m of the same course on the
+             CPU. Prints frame times with and without keyframe frames, the
+             backend's stage timers, k-NN launches a keyframe and the
+             mirror's bytes;
+6. reboot  — a second backend on the database just built boots in
+             RELOCALIZATION; a fresh system around it is fed the course from
+             its middle and must relocalize within 10 keyframes and then stay
+             within 0.5 m of the ground truth expressed in the map frame.
 
 Then the card's name and power limit, one JSON line of kernel numbers, and
 the result line ``{"ok": true, "device": {...}}`` last.
@@ -64,6 +85,26 @@ KNN_PER_FRAME = 10  # 5 associations × (edge + surf) at the default cadence
 # printed beside this run's numbers.
 EARLIER_KNN_MS_PER_FRAME = 4.78
 EARLIER_EVENTS_PER_FRAME = 6722
+
+
+# phase backend: the looped course and its limits
+LOOP_FRAMES = 120
+LOOP_SEED = 0
+N_CPU_KEYFRAMES = 10  # keyframes compared with the same course on the CPU
+ODOM_ATE_SLACK = 0.01  # m, map-frame ATE may exceed odometry's by this much
+REBOOT_START = 40  # the second run starts at this frame of the course
+REBOOT_FRAMES = 45
+REBOOT_KEYFRAMES = 10  # it must relocalize within this many keyframes
+REBOOT_LIMIT = 0.5  # m from the ground truth in the map frame, once localized
+
+# shapes the backend gives the k-NN: (edge 384 | surf 1536) × local maps of 7
+# (loop verification at adjacent_window=3), 10 (localization_knn) and 11
+# (adjacent_window=5) keyframes
+BACKEND_SHAPES = [
+    ("loop7 edge 384x2688 k=5", 384, 2688), ("loop7 surf 1536x10752 k=5", 1536, 10752),
+    ("loc10 edge 384x3840 k=5", 384, 3840), ("loc10 surf 1536x15360 k=5", 1536, 15360),
+    ("loop11 edge 384x4224 k=5", 384, 4224), ("loop11 surf 1536x16896 k=5", 1536, 16896),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -243,7 +284,7 @@ def phase_kernel(K):
         ("no valid ref 64x1000 k=5 S=2", 64, 1000, 5, 0, 0, False, 2),
         ("no valid query 64x1000 k=5 S=2", 64, 1000, 5, 64, 0.8, False, 2),
         ("k>valid 40x3000 k=8 S=6", 40, 3000, 8, 5, 5, False, 6),
-    ]
+    ] + [(name, Q, N, 5, 0, 0.7, False, None) for name, Q, N in BACKEND_SHAPES]
     results = {}
     timed = {}
     for i, (name, Q, N, k, qi, valid, dup, forced) in enumerate(cases):
@@ -257,7 +298,7 @@ def phase_kernel(K):
                "slice_len": slice_len, "blocks": blocks, "max_abs_err": err,
                "near_tie_rows": n_tie, "equals_single_scan_model": small}
         results[name] = row
-        if name.startswith(("edge", "surf", "nn1")):
+        if name.startswith(("edge", "surf", "nn1", "loop", "loc")):
             timed[name] = (q, qm, r, rm, k)
             continue
         log("kernel", f"{name}: S={S} (slices of {slice_len}), {blocks} blocks; agrees with "
@@ -267,6 +308,11 @@ def phase_kernel(K):
     for name in ("edge 384x8192 k=5", "surf 1536x16384 k=5"):
         check(results[name]["blocks"] >= 264,
               f"{name}: grid of {results[name]['blocks']} blocks, fewer than 264")
+    for name, _, _ in BACKEND_SHAPES:  # choose_splits gives a sane grid at the new shapes
+        row = results[name]
+        check(K.MIN_SLICE <= row["slice_len"] <= K.MAX_SLICE and row["slice_len"] % K.ALIGN == 0
+              and row["splits"] > 1,
+              f"{name}: S={row['splits']}, slices of {row['slice_len']} points")
 
     # the result does not depend on the split: other S and L, the same bits
     q, qm, r, rm, k = timed["surf 1536x16384 k=5"]
@@ -491,6 +537,276 @@ def phase_profile(scans, frame_ms):
                         for k, ms, c in rows[:25]]}
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the whole system with the lifelong backend, and a reboot
+# ---------------------------------------------------------------------------
+
+
+def backend_config():
+    """The looped simulator course's configuration at full width: default
+    features (16 × 900, 384 edge + 1536 surf), gates scaled to a 120-frame
+    circle (a loop may close after 20 keyframes)."""
+    from lmsf_slam_tpu_torch.backend import LifelongConfig, LoopConfig
+    from lmsf_slam_tpu_torch.ops.registration import RegistrationParams
+    from lmsf_slam_tpu_torch.system import FeatureParams, SystemConfig
+
+    return SystemConfig(
+        feature=FeatureParams(rings=16, width=900),
+        registration=RegistrationParams(max_iters=8, max_corr_dist=2.0),
+        map_update_trans=0.2,
+        keyframe_trans=0.8,
+        lifelong=LifelongConfig(optimize_window=50),
+        loop=LoopConfig(min_frame_interval=20, exclude_recent=10, detect_spacing=1,
+                        search_radius=6.0, adjacent_window=3, refine_score_thresh=0.3),
+    )
+
+
+def make_loop_course(seed=LOOP_SEED, n_frames=LOOP_FRAMES):
+    """Ground truth and scans (in host memory) of the closed course."""
+    from lmsf_slam_tpu_torch.datasets import make_sim_world, make_trajectory, simulate_scan
+
+    rng = np.random.default_rng(seed)
+    world = make_sim_world(rng, extent=30.0, n_boxes=14, n_cylinders=24)
+    traj = make_trajectory(n_frames, radius=9.0, loop=True, device="cpu").numpy().copy()
+    traj[:, 6] = 1.4
+    scans = [simulate_scan(world, traj[i], rng, rings=16, width=900, max_range=60.0, noise=0.01,
+                           device="cpu") for i in range(n_frames)]
+    return traj, scans
+
+
+def drive(system, scans, stamps, stop=None):
+    """Feed scans through ``system.process``; returns (results, seconds a
+    frame). ``stop(system, result)`` true ends the run after that frame."""
+    results, times = [], []
+    for scan, t in zip(scans, stamps):
+        t0 = time.perf_counter()
+        res = system.process(scan, t)
+        times.append(time.perf_counter() - t0)
+        results.append(res)
+        if stop is not None and stop(system, res):
+            break
+    return results, times
+
+
+def mirror_nbytes(db):
+    m = db._mirror_sync()
+    return int(sum(v.numel() * v.element_size() for v in m.values() if hasattr(v, "numel")))
+
+
+def time_solve(backend, repeats=3):
+    """What a full pose-graph solve of the database's graph costs on the
+    card (host clock around a solve that ends in a read-back); the poses are
+    not written back."""
+    import torch
+
+    from lmsf_slam_tpu_torch.backend import optimize_pose_graph
+    from lmsf_slam_tpu_torch.backend.pose_graph import _edge_res_jac
+
+    cfg, db = backend.config, backend.db
+    g = db.graph_arrays(pad_min=cfg.graph_pad_min)
+    ms, jac_ms, stats = [], [], None
+    pi, pj = g.poses[g.edges_ij[:, 0].long()], g.poses[g.edges_ij[:, 1].long()]
+    for _ in range(repeats):  # the edge Jacobians alone: the start of every GN iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _edge_res_jac(pi, pj, g.edges_z)
+        torch.cuda.synchronize()
+        jac_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses, stats = optimize_pose_graph(g.poses, g.vmask, g.edges_ij, g.edges_z, g.edges_sqrtw,
+                                           g.emask, edges_robust=g.erobust, params=cfg.pose_graph)
+        poses.cpu()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"vertices": int(db.n_keyframes), "edges": int(db.n_edges),
+            "padded_vertices": int(g.poses.shape[0]), "padded_edges": int(g.emask.shape[0]),
+            "ms": ms, "ms_median": float(np.median(ms)), "iterations": int(stats.iterations),
+            "jacobians_ms": jac_ms, "jacobians_ms_median": float(np.median(jac_ms)),
+            "chi2_initial": float(stats.chi2_initial), "chi2_final": float(stats.chi2_final)}
+
+
+def phase_backend(traj, scans):
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.backend import WorkMode
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.evaluation import ate_stats
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    cfg = backend_config()
+    n = len(scans)
+    stamps = [0.1 * i for i in range(n)]
+    system = MultiLidarSystem(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    first_kf = {}
+    solves = []  # (keyframes stored, loop closed, solver runs) after every keyframe frame
+
+    def snapshot(sys_, res):
+        # the first keyframes' map poses, when the last of them is stored
+        if sys_.backend.db.n_keyframes == N_CPU_KEYFRAMES and not first_kf:
+            first_kf["poses"] = sys_.keyframe_trajectory()
+        if res.is_keyframe:
+            solves.append((sys_.backend.db.n_keyframes, res.loop_closed,
+                           dict(sys_.backend.solver_runs)))
+        return False
+
+    results, times = drive(system, scans, stamps, stop=snapshot)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    backend = system.backend
+    db = backend.db
+
+    est = system.trajectory()
+    odom = np.stack([r.odom_pose for r in results])
+    check(len(results) == n and np.isfinite(est).all() and np.isfinite(odom).all(),
+          "non-finite pose on the card")
+    n_kf_frames = sum(r.is_keyframe for r in results)
+    check(db.n_keyframes >= 20, f"only {db.n_keyframes} keyframes stored")
+    closed = [i for i, r in enumerate(results) if r.loop_closed]
+    check(len(closed) >= 1, "no loop closed on the looped course")
+    check(all(r.mode is WorkMode.MAPPING for r in results[:closed[0]])
+          and results[closed[0]].mode is WorkMode.LOCALIZATION,
+          "the mode did not go MAPPING → LOCALIZATION at the loop closure")
+    runs = dict(backend.solver_runs)
+    check(runs["full_replicated"] >= 1, f"no full solve ran: {runs}")
+    # a solve that no loop closure asked for is windowed once more than
+    # optimize_window + 1 keyframes are stored
+    for (_, _, before), (n_kf, loop, after) in zip(solves, solves[1:]):
+        if sum(after.values()) > sum(before.values()) and not loop and (
+                n_kf > cfg.lifelong.optimize_window + 1):
+            check(after["windowed"] == before["windowed"] + 1,
+                  f"the solve at {n_kf} keyframes was not windowed: {before} → {after}")
+    gt = np.stack([se3np.pose_between(traj[0], traj[i]) for i in range(n)])
+    ate_map, ate_odom = ate_stats(est, gt).rmse, ate_stats(odom, gt).rmse
+    check(ate_map < ATE_LIMIT, f"map-frame ATE {ate_map:.4f} m ≥ {ATE_LIMIT} m")
+    check(ate_map <= ate_odom + ODOM_ATE_SLACK,
+          f"map-frame ATE {ate_map:.4f} m worse than odometry's {ate_odom:.4f} m")
+    per_frame = 2 * 4  # max_iters=8: 4 associations × (edge + surf) a frame
+    for name in ("knn", "knn_merge"):  # the frames' associations and the backend's on top
+        check(launches.get(name, 0) > per_frame * n,
+              f"{name}: {launches.get(name, 0)} launches on the backend path, the frames "
+              f"alone make {per_frame * n}")
+    knn_backend = launches["knn"] - per_frame * n
+
+    # the same course on the CPU (plain k-NN) until the first keyframes are stored
+    cpu = MultiLidarSystem(cfg, device="cpu")
+    _, times_cpu = drive(cpu, scans, stamps,
+                         stop=lambda s, r: s.backend.db.n_keyframes >= N_CPU_KEYFRAMES)
+    check("poses" in first_kf, "the card run stored fewer keyframes than compared")
+    kf_card, kf_cpu = first_kf["poses"], cpu.keyframe_trajectory()
+    check(kf_cpu.shape == kf_card.shape, "card and CPU stored different keyframes")
+    dev_cpu = float(np.max(np.abs(kf_card - kf_cpu)))
+    check(dev_cpu < CPU_AGREE, f"card vs CPU keyframe map poses differ by {dev_cpu:.3g} "
+          f"(limit {CPU_AGREE})")
+
+    solve = time_solve(backend)
+    ms = np.asarray(times) * 1e3
+    is_kf = np.asarray([r.is_keyframe for r in results])
+    stats = backend.timer.stats()
+    out = {
+        "solve": solve,
+        "frames": n, "keyframe_frames": int(n_kf_frames), "keyframes_stored": int(db.n_keyframes),
+        "edges": int(db.n_edges), "loops_closed": len(closed), "first_loop_frame": closed[0],
+        "loop_edges": db.eij[:db.n_edges][db.eloop[:db.n_edges]].tolist(),
+        "final_mode": backend.mode.name, "solver_runs": runs,
+        "ate_map_m": ate_map, "ate_odom_m": ate_odom,
+        "frame_ms_median": float(np.median(ms)), "frame_ms_p90": float(np.percentile(ms, 90)),
+        "frame_ms_median_no_kf": float(np.median(ms[~is_kf])),
+        "frame_ms_p90_no_kf": float(np.percentile(ms[~is_kf], 90)),
+        "frame_ms_median_kf": float(np.median(ms[is_kf])),
+        "frame_ms_p90_kf": float(np.percentile(ms[is_kf], 90)),
+        "frame_ms_max": float(ms.max()), "frame_ms_all": ms.tolist(),
+        "is_keyframe": is_kf.tolist(), "stage_ms": stats,
+        "knn_launches": launches["knn"], "knn_merge_launches": launches["knn_merge"],
+        "knn_launches_per_backend_keyframe": knn_backend / max(n_kf_frames, 1),
+        "mirror_bytes": mirror_nbytes(db), "mirror_rows": int(db._mirror["cap"]),
+        "peak_device_bytes": int(peak), "cpu_keyframes_max_abs_pose_diff": dev_cpu,
+        "cpu_frame_ms_median": float(np.median(np.asarray(times_cpu) * 1e3)),
+    }
+    log("backend", f"{n} frames, {n_kf_frames} through the gate, {db.n_keyframes} keyframes and "
+        f"{db.n_edges} edges stored; loops closed {len(closed)} (first at frame {closed[0]}, "
+        f"edges {out['loop_edges']}), mode MAPPING → {backend.mode.name}; solver runs {runs}")
+    log("backend", f"ATE map frame {ate_map:.4f} m, odometry alone {ate_odom:.4f} m (limit "
+        f"{ATE_LIMIT}); first {N_CPU_KEYFRAMES} keyframes card vs CPU max |Δpose| {dev_cpu:.3g}")
+    log("backend", f"ms/frame median {out['frame_ms_median']:.2f}, p90 {out['frame_ms_p90']:.2f}, "
+        f"max {out['frame_ms_max']:.1f}; frames without a keyframe median "
+        f"{out['frame_ms_median_no_kf']:.2f}, p90 {out['frame_ms_p90_no_kf']:.2f}; keyframe frames "
+        f"median {out['frame_ms_median_kf']:.2f}, p90 {out['frame_ms_p90_kf']:.2f}")
+    log("backend", "stage ms (n, mean, median, max): " + "; ".join(
+        f"{k} {v['n']}, {v['mean_ms']:.2f}, {v['median_ms']:.2f}, {v['max_ms']:.2f}"
+        for k, v in sorted(stats.items())))
+    log("backend", f"a full solve of the final graph ({solve['vertices']} vertices and "
+        f"{solve['edges']} edges padded to {solve['padded_vertices']} and "
+        f"{solve['padded_edges']}): {solve['ms_median']:.1f} ms (median of {len(solve['ms'])}), "
+        f"{solve['iterations']} GN iterations, chi2 {solve['chi2_initial']:.4g} → "
+        f"{solve['chi2_final']:.4g}; the edge Jacobians alone {solve['jacobians_ms_median']:.1f} ms")
+    log("backend", f"knn launches {launches['knn']} (+{launches['knn_merge']} merges): "
+        f"{per_frame} a frame and {out['knn_launches_per_backend_keyframe']:.1f} more a keyframe "
+        f"frame; mirror {out['mirror_bytes'] / 2**20:.2f} MiB in {out['mirror_rows']} rows; peak "
+        f"device memory {peak / 2**20:.1f} MiB")
+    return out, system
+
+
+def phase_reboot(traj, scans, first):
+    """A second run on the first one's database: boots in RELOCALIZATION,
+    relocalizes by appearance, then localizes against the stored map."""
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.backend import LifelongBackend, WorkMode
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    cfg = backend_config()
+    backend = LifelongBackend(db=first.backend.db, config=cfg.lifelong, loop_config=cfg.loop)
+    check(backend.mode is WorkMode.RELOCALIZATION, "a backend on a filled database must boot "
+          "in RELOCALIZATION")
+    system = MultiLidarSystem(cfg, backend=backend, device="cuda")
+    frames = range(REBOOT_START, REBOOT_START + REBOOT_FRAMES)
+    _build.reset_launches()
+    results, times = drive(system, [scans[i] for i in frames], [100.0 + 0.1 * i for i in frames])
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("knn", "knn_merge"):
+        check(launches.get(name, 0) > 0, f"{name} was not launched on the reboot path")
+    localized = [k for k, r in enumerate(results) if r.mode is not WorkMode.RELOCALIZATION]
+    check(bool(localized), "the rebooted system never relocalized")
+    kf_before = sum(r.is_keyframe for r in results[:localized[0] + 1])
+    check(kf_before <= REBOOT_KEYFRAMES,
+          f"relocalized only after {kf_before} keyframes (limit {REBOOT_KEYFRAMES})")
+    gt = np.stack([se3np.pose_between(traj[0], traj[i]) for i in frames])
+    est = np.stack([r.map_pose for r in results])
+    check(np.isfinite(est).all(), "non-finite pose after the reboot")
+    err = np.linalg.norm(est[localized[0]:, 4:] - gt[localized[0]:, 4:], axis=1)
+    check(float(err.max()) < REBOOT_LIMIT,
+          f"after relocalizing, the map pose lies {err.max():.3f} m from the ground truth "
+          f"(limit {REBOOT_LIMIT})")
+    stats = backend.timer.stats()
+    out = {
+        "start_frame": REBOOT_START, "frames": len(results),
+        "relocalized_at_frame": REBOOT_START + localized[0],
+        "keyframes_until_relocalized": int(kf_before),
+        "map_err_rmse_m": float(np.sqrt(np.mean(err ** 2))), "map_err_max_m": float(err.max()),
+        "modes": [r.mode.name for r in results], "history": [
+            (h.mode.name, h.keyframe_id, h.score, h.overlap) for h in backend.history],
+        "stage_ms": stats, "knn_launches": launches["knn"],
+        "knn_merge_launches": launches["knn_merge"],
+        "frame_ms_median": float(np.median(np.asarray(times) * 1e3)),
+    }
+    log("reboot", f"booted in RELOCALIZATION on {backend.db.n_keyframes} keyframes; fed frames "
+        f"{REBOOT_START}..{REBOOT_START + len(results) - 1}: relocalized at frame "
+        f"{out['relocalized_at_frame']} after {kf_before} keyframe(s); map pose vs ground truth in "
+        f"the map frame rmse {out['map_err_rmse_m']:.3f} m, max {out['map_err_max_m']:.3f} m "
+        f"(limit {REBOOT_LIMIT}); final mode {results[-1].mode.name}; stage ms (n, mean): "
+        + "; ".join(f"{k} {v['n']}, {v['mean_ms']:.2f}" for k, v in sorted(stats.items())))
+    return out
+
+
 def ptxas_summary(lines):
     """One line of the compiler's per-kernel resource report: the most
     registers a thread, the most static shared memory, the spills."""
@@ -531,6 +847,9 @@ def main(argv=None):
     traj, scans = make_course()
     sl = phase_slice(traj, scans)
     prof = phase_profile(scans, sl["frame_ms_median"])
+    loop_traj, loop_scans = make_loop_course()
+    be, first_run = phase_backend(loop_traj, loop_scans)
+    reboot = phase_reboot(loop_traj, loop_scans, first_run)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -549,7 +868,9 @@ def main(argv=None):
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": sl["knn_launches"],
+        "launches": be["knn_launches"],
+        "launches_front_end_slice": sl["knn_launches"],
+        "launches_reboot": reboot["knn_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": surf["ms"], "plain_ms": surf["plain_ms"], "bound_ms": surf["bound_ms"],
         "bound_by": surf["bound_by"], "library_ms": surf["library_ms"],
@@ -559,12 +880,16 @@ def main(argv=None):
         "surf_1536x16384": {k: surf[k] for k in timed_keys},
         "edge_384x8192": {k: edge[k] for k in timed_keys},
         "nn1_1920x24576": {k: nn1[k] for k in timed_keys},
+        **{name.split()[2]: {k: kernel[name][k] for k in timed_keys}
+           for name, _, _ in BACKEND_SHAPES},
     }, {
         "name": "knn_merge",
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": sl["knn_merge_launches"],
+        "launches": be["knn_merge_launches"],
+        "launches_front_end_slice": sl["knn_merge_launches"],
+        "launches_reboot": reboot["knn_merge_launches"],
         "max_abs_err": merge["max_abs_err"],
         "ms": merge["ms"], "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
         "bound_by": merge["bound_by"], "library_ms": merge["library_ms"],
@@ -574,7 +899,8 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "build": info, "kernel": kernel, "slice": sl,
-                       "profile": prof, "seconds": time.perf_counter() - t_start},
+                       "profile": prof, "backend": be, "reboot": reboot,
+                       "seconds": time.perf_counter() - t_start},
                       fh, indent=1)
     print(smi)
     print(json.dumps(line))

@@ -1,12 +1,21 @@
-"""lmsf_slam_tpu_torch — the LiDAR SLAM front end in PyTorch, for CUDA.
+"""lmsf_slam_tpu_torch — the lifelong LiDAR SLAM engine in PyTorch, for CUDA.
 
 A port of :mod:`lmsf_slam_tpu` (the JAX reference, which stays in the
 repository unchanged) to PyTorch on an NVIDIA Hopper card. Module layout and
 names mirror the reference so each counterpart is easy to find:
 ``common`` (SE(3) algebra, point batches), ``ops`` (preprocess, voxel,
-features, neighbour search, registration), ``tracker``, ``system`` (the fused
-per-frame step and the keyframe gate), ``datasets`` (ray-cast simulator) and
-``evaluation`` (ATE).
+features, neighbour search, registration and alignment evaluation, scan
+context), ``tracker``, ``backend`` (keyframe database with its device mirror,
+pose graph, loop closure, the lifelong mode machine), ``system``
+(``MultiLidarSystem``, the fused per-frame step, the keyframe gate, the YAML
+config loader), ``datasets`` (ray-cast simulator), ``evaluation`` (ATE) and
+``utils`` (stage timers).
+
+The public entry point::
+
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem, SystemConfig
+    system = MultiLidarSystem(SystemConfig())      # device="cuda"
+    result = system.process(scan, timestamp)       # a FrameResult every frame
 
 The one TPU kernel of the reference, the fused k-NN of
 ``lmsf_slam_tpu/ops/pallas_knn.py``, is a pair of hand-written CUDA kernels

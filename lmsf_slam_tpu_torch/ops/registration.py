@@ -1,9 +1,12 @@
 """Scan-to-map registration as a Gauss-Newton loop on torch tensors.
 
 Counterpart of ``lmsf_slam_tpu/ops/registration.py`` (``register_edge_surf``,
-``register_point_to_plane`` and their helpers): 5-NN PCA line / plane fits,
-point-to-line and point-to-plane residuals, huber weights, optional trimmed
-GN, the degeneracy projector of JᵀJ and the κ-penalised 6×6 Cholesky step.
+``register_point_to_plane``, ``register_and_score``, ``evaluate_alignment``
+and their helpers): 5-NN PCA line / plane fits, point-to-line and
+point-to-plane residuals, huber weights, optional trimmed GN, the degeneracy
+projector of JᵀJ and the κ-penalised 6×6 Cholesky step; and the alignment
+evaluator (score and overlap of a scan against a map) that gates loop
+closures, relocalization and localization.
 
 The reference runs the loop as one ``lax.scan`` with ``lax.cond`` around the
 association and the projector. Here the loop is a Python loop over a static
@@ -305,3 +308,93 @@ def register_point_to_plane(
     """sparse_point_plane_icp: surf-only registration against a raw map."""
     empty = PointBatch.empty(8, device=src.xyz.device)
     return register_edge_surf(empty, src, empty, map_pb, init_pose, params)
+
+
+def register_and_score(
+    src_edge: PointBatch,
+    src_surf: PointBatch,
+    map_edge: PointBatch,
+    map_surf: PointBatch,
+    init_pose: torch.Tensor,
+    params: RegistrationParams = RegistrationParams(),
+    min_overlap=0.2,
+):
+    """Registration followed by alignment evaluation of its pose — the
+    localization cycle. Returns (RegistrationResult, score, overlap) as
+    tensors; the caller reads them back together."""
+    reg = register_edge_surf(src_edge, src_surf, map_edge, map_surf, init_pose, params)
+    score, overlap = evaluate_alignment(src_surf, map_surf, reg.pose, min_overlap=min_overlap)
+    return reg, score, overlap
+
+
+# ---------------------------------------------------------------------------
+# Alignment evaluation
+# ---------------------------------------------------------------------------
+
+
+def evaluate_alignment(
+    src: PointBatch,
+    map_pb: PointBatch,
+    pose: torch.Tensor,
+    inlier_dist: float = 1.0,
+    min_overlap=0.2,
+    score_dist: float = 0.5,
+):
+    """Score = mean squared surface distance over inliers; overlap = 1-NN
+    inlier ratio.
+
+    Score and overlap answer different questions and use different radii:
+    ``overlap`` measures COVERAGE (fraction of the scan within
+    ``inlier_dist`` of the map), while ``score`` measures ALIGNMENT of the
+    covered region, over the tighter ``score_dist`` ring; when that ring is
+    (nearly) empty — gross misalignment — the score falls back to the full
+    coverage ring. The scored distance is point-to-PLANE where the 5-NN
+    within ``inlier_dist`` are planar (at least 3 of them, all within 0.2 m
+    of their fitted plane), else the 1-NN point distance, so the gates
+    measure alignment and not the spacing of the stored features.
+
+    One k-NN search (k = 5) that also returns the neighbours' coordinates,
+    so no gather follows the kernel. The plane fit runs in float64, like the
+    surf fits of the registration (five neighbours along one scan ring give a
+    near-degenerate covariance whose float32 eigenvector is set by rounding
+    order); distances, counts and the score are float32.
+
+    Returns (score, overlap) as 0-dim tensors; score is 1e9 when overlap <
+    ``min_overlap``.
+    """
+    p_w = se3.pose_apply(pose.to(torch.float32), src.xyz)
+    d, _, nbr = neighbors.knn_with_neighbors(p_w, src.mask, map_pb.xyz, map_pb.mask, k=5)
+    d1 = d[:, 0]  # squared 1-NN point distance
+    # plane support is bounded to the correspondence radius: a neighbor
+    # farther than inlier_dist must not lend its plane to the query; with <3
+    # in-radius neighbors the score falls back to the point distance
+    nvalid = d < inlier_dist * inlier_dist
+    nbr = nbr.to(torch.float64)
+    w = nvalid.to(torch.float64)
+    n_support = torch.sum(w, dim=1)
+    wsum = torch.clamp(n_support, min=1.0)[:, None]
+    centroid = torch.sum(nbr * w[..., None], dim=1) / wsum
+    diff = (nbr - centroid[:, None, :]) * w[..., None]
+    cov = torch.einsum("nki,nkj->nij", diff, diff) / wsum[..., None]
+    n = mat3.sym_eigh3(cov)[1][..., 0]  # smallest-eigval dir = plane normal
+    # planar neighborhood: enough support and thin out-of-plane extent
+    pd = torch.abs(
+        torch.sum(nbr * n[:, None, :], dim=-1) - torch.sum(n * centroid, dim=-1)[:, None]
+    )
+    plane_ok = (n_support >= 3.0) & torch.all(torch.where(nvalid, pd < 0.2, True), dim=1)
+    d_plane = torch.square(torch.sum((p_w.to(torch.float64) - centroid) * n, dim=-1))
+    d_surf = torch.where(plane_ok, d_plane.to(torch.float32), d1)
+
+    inlier = src.mask & (d1 < inlier_dist * inlier_dist)
+    n_src = torch.clamp(torch.sum(src.mask), min=1)
+    n_in = torch.sum(inlier)
+    overlap = (n_in / n_src).to(torch.float32)
+    # alignment score over the tight ring; coverage-ring fallback when the
+    # tight ring is (nearly) empty — i.e. gross misalignment
+    s_in = src.mask & (d1 < score_dist * score_dist)
+    n_s = torch.sum(s_in)
+    score_tight = torch.sum(torch.where(s_in, d_surf, 0.0)) / torch.clamp(n_s, min=1)
+    score_cover = torch.sum(torch.where(inlier, d_surf, 0.0)) / torch.clamp(n_in, min=1)
+    score = torch.where(n_s > 0.05 * n_in, score_tight, score_cover)
+    score = torch.where(overlap < min_overlap, 1e9, score)
+    return score, overlap

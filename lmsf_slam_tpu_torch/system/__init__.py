@@ -2,6 +2,7 @@ from .ml_system import (  # noqa: F401
     FeatureParams,
     FrameResult,
     KeyframeGate,
+    MultiLidarSystem,
     SystemConfig,
     build_fused_step,
     read_frame,

@@ -1,13 +1,21 @@
-"""The front-end frame: raw scan → features → tracked pose → keyframe gate.
+"""System orchestration: raw scans in → trajectory + lifelong map out.
 
-Counterpart of the fused single-LiDAR branch of
-``lmsf_slam_tpu/system/ml_system.py`` (one LiDAR, no IMU,
+Counterpart of ``lmsf_slam_tpu/system/ml_system.py`` on its fused
+single-LiDAR branch (one LiDAR, no IMU,
 ``registration_method="feature_based"``): ``preprocess`` →
 ``organize_scan`` → ``extract_loam_features`` → ``tracker_step`` in one
-per-frame function (:func:`build_fused_step`), then the host-side
-:class:`KeyframeGate` on the pose read back once per frame
-(:func:`read_frame`). The lifelong backend that keyframes are handed to, and
-``MultiLidarSystem`` around it, are not ported yet.
+per-frame function (:func:`build_fused_step`), the host-side
+:class:`KeyframeGate` on the pose read back once per frame, the hand-off of
+keyframes to the sync lifelong backend (mapping, localization, loop closure,
+relocalization), and a :class:`FrameResult` every frame
+(:class:`MultiLidarSystem`).
+
+``SystemConfig`` carries every field of the reference's, so configurations
+move between the packages unchanged; :class:`MultiLidarSystem` rejects the
+ones whose paths are not ported yet (several LiDARs, the IMU, the worker
+thread backend, registration methods other than ``feature_based``).
+``build_fused_step`` and :func:`read_frame` remain the front end alone, with
+no backend behind the gate.
 """
 from __future__ import annotations
 
@@ -17,12 +25,16 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..backend.keyframe_db import KeyframeDatabase
+from ..backend.lifelong import BackendOutput, LifelongBackend, LifelongConfig, WorkMode
+from ..backend.loop_closure import LoopConfig
+from ..calibration.handeye import HandEyeConfig
 from ..common import se3np
 from ..common.pointcloud import PointBatch
 from ..ops import features as F
 from ..ops.preprocess import PreprocessParams, preprocess
 from ..ops.registration import RegistrationParams
-from ..tracker.tracker import TrackerConfig, tracker_step
+from ..tracker.tracker import TrackerConfig, tracker_init, tracker_step
 
 
 class FeatureParams(NamedTuple):
@@ -57,17 +69,43 @@ class FeatureParams(NamedTuple):
 
 
 class SystemConfig(NamedTuple):
-    """The front-end fields of the reference's ``SystemConfig`` (the
-    backend, IMU and multi-LiDAR fields come with their slices)."""
-
     n_lidars: int = 1
     feature: FeatureParams = FeatureParams()
     preprocess: PreprocessParams = PreprocessParams()
+    # front-end matching method: "feature_based" = LOAM edge+surf GN;
+    # "sparse_point_plane_icp" = voxel-downsampled whole cloud as planar
+    # points, no edge classification
     registration_method: str = "feature_based"
+    icp_voxel_size: float = 0.4  # scan downsample for the ICP method
+    # multi-lidar online extrinsic calibration: phase 0 = per-lidar odometry
+    # + hand-eye init; phase 1 = refinement of each sub extrinsic against the
+    # primary local map; phase 2 = fused tracking of all lidars in the
+    # primary frame
+    handeye: HandEyeConfig = HandEyeConfig(min_pairs=10)
+    calib_refine_frames: int = 5  # accepted refinements before phase 2
+    # phase-1 refinement registration: longer leash than tracking and a
+    # degeneracy floor scaled to a single sub scan's match count
+    calib_refine_registration: RegistrationParams = RegistrationParams(
+        max_iters=16, max_corr_dist=2.0, degen_thresh=25.0
+    )
+    # known extrinsics (list of (7,) poses of lidar i in lidar-0 frame) skip
+    # calibration entirely; None → calibrate online
+    extrinsics: Optional[tuple] = None
+    # run the backend (loop detection + optimization) on a worker thread so
+    # the frontend never stalls. async_policy: backpressure behavior when
+    # the worker falls behind — "coalesce", "block" or "drop"
+    async_backend: bool = False
+    async_policy: str = "coalesce"
+    # IMU-aided mode: ESKF-propagated prediction + sweep deskew
+    use_imu: bool = False
+    # tracker (capacities derived from ``feature``)
     tracker_window: int = 20
-    # IMU-free constant-velocity sweep deskew in the tracker
+    # IMU-free constant-velocity sweep deskew in the tracker (consumes the
+    # per-point rel-time attr when present)
     deskew: bool = False
-    # frontend dynamic-object probation gate (also turns on map carving)
+    # frontend dynamic-object probation gate: admit scan points to the
+    # odometry local map only when map-supported or re-sighted at a static
+    # world position (also turns on map carving)
     dynamic_probation: bool = False
     registration: RegistrationParams = RegistrationParams()
     map_update_trans: float = 0.3  # local-map insertion gate
@@ -77,20 +115,21 @@ class SystemConfig(NamedTuple):
     keyframe_trans: float = 1.0  # m
     keyframe_rot: float = math.radians(30.0)
     keyframe_dt: float = 60.0  # s
+    lifelong: LifelongConfig = LifelongConfig()
+    loop: LoopConfig = LoopConfig()
 
 
 class FrameResult(NamedTuple):
-    """Per-frame result. Without the backend the map frame is the odometry
-    frame, so ``map_pose`` equals ``odom_pose`` and no keyframe is stored."""
-
     timestamp: float
     odom_pose: np.ndarray  # (7,) front-end odometry-frame pose
-    map_pose: np.ndarray  # (7,) map-frame pose
+    map_pose: np.ndarray  # (7,) map-frame pose (odom2map ∘ odom)
+    mode: WorkMode
     is_keyframe: bool
     keyframe_id: int  # backend DB id, -1 if not stored
     loop_closed: bool
     converged: bool  # front-end registration health
     num_matches: int
+    calib_status: int = 2  # 0 = hand-eye init, 1 = refining, 2 = calibrated
 
 
 class KeyframeGate:
@@ -136,7 +175,8 @@ def tracker_config_for(config: SystemConfig) -> TrackerConfig:
         map_update_rot=config.map_update_rot,
         map_update_dt=config.map_update_dt,
         registration=config.registration,
-        deskew=config.deskew,
+        # under use_imu the LIO layer deskews before tracker_step
+        deskew=config.deskew and not config.use_imu,
         probation=config.dynamic_probation,
         carve_map=config.dynamic_probation,
     )
@@ -188,25 +228,185 @@ def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda"):
     return tracker_config, step
 
 
-def read_frame(out, gate: KeyframeGate, timestamp: float) -> FrameResult:
-    """Keyframe gate → FrameResult, with ONE device-to-host copy of the
-    frame's pose, convergence flag and match count (the counterpart of the
-    reference's single ``device_get`` in ``_finish_frame``)."""
+def _read_back(out):
+    """ONE device-to-host copy of a frame's pose, convergence flag and match
+    count: (odom_pose (7,) float32, converged, num_matches)."""
     reg = out.registration
     packed = torch.cat([
         out.pose.to(torch.float32),
         reg.converged.to(torch.float32).reshape(1),
         reg.num_matches.to(torch.float32).reshape(1),
     ]).cpu().numpy()
-    odom_pose = packed[:7].astype(np.float32)
+    return packed[:7].astype(np.float32), bool(packed[7]), int(packed[8])
+
+
+def read_frame(out, gate: KeyframeGate, timestamp: float) -> FrameResult:
+    """Keyframe gate → FrameResult for the front end alone, with ONE
+    device-to-host copy. No backend stands behind the gate: the map frame is
+    the odometry frame (``map_pose`` equals ``odom_pose``), no keyframe is
+    stored, and ``mode`` is MAPPING, the mode of a run without a map."""
+    odom_pose, converged, num_matches = _read_back(out)
     is_kf = gate.need_update(odom_pose, timestamp)
     return FrameResult(
         timestamp=float(timestamp),
         odom_pose=odom_pose,
         map_pose=odom_pose.copy(),
+        mode=WorkMode.MAPPING,
         is_keyframe=is_kf,
         keyframe_id=-1,
         loop_closed=False,
-        converged=bool(packed[7]),
-        num_matches=int(packed[8]),
+        converged=converged,
+        num_matches=num_matches,
     )
+
+
+class MultiLidarSystem:
+    """Public end-to-end SLAM system, on the fused single-LiDAR path.
+
+    ``process(scan, timestamp)`` is the single entry point: a raw organized
+    or unorganized scan goes in; the front end featurizes and tracks it;
+    frames passing the keyframe gate feed the lifelong backend (mapping,
+    localization, loop closure, relocalization); a ``FrameResult`` comes out
+    every frame.
+    """
+
+    def __init__(
+        self,
+        config: SystemConfig = SystemConfig(),
+        backend: Optional[LifelongBackend] = None,
+        device="cuda",
+    ):
+        """``device`` is where the frame and a backend made here run; a given
+        ``backend`` must keep its database on the same device."""
+        unported = [
+            what for bad, what in (
+                (config.n_lidars != 1,
+                 "several LiDARs and their calibration (ROADMAP.md section 1, item 13)"),
+                (config.use_imu, "the IMU-aided front end (ROADMAP.md section 1, item 12)"),
+                (config.async_backend,
+                 "the worker-thread backend (ROADMAP.md section 1, item 10)"),
+                (config.registration_method != "feature_based",
+                 "registration methods other than feature_based (ROADMAP.md section 1, "
+                 "items 8 and 14)"),
+            ) if bad
+        ]
+        if unported:
+            raise NotImplementedError("not ported yet: " + "; ".join(unported))
+        self.config = config
+        self.device = torch.device(device)
+        f = config.feature
+        self.tracker_config, self._fused_step = build_fused_step(config, self.device)
+        self.tracker_state = tracker_init(self.tracker_config, self.device)
+        if backend is not None:
+            if backend.db.device.type != self.device.type:
+                raise ValueError(
+                    f"the backend's database is on {backend.db.device}, the system on {self.device}"
+                )
+            self.backend = backend
+        else:
+            db = KeyframeDatabase(
+                edge_capacity=f.edge_capacity, surf_capacity=f.surf_capacity, device=self.device
+            )
+            self.backend = LifelongBackend(db=db, config=config.lifelong, loop_config=config.loop)
+        self.gate = KeyframeGate(config.keyframe_trans, config.keyframe_rot, config.keyframe_dt)
+        self.results: list[FrameResult] = []
+        self.extrinsics: list = []
+        self.calib_status = 2  # one LiDAR: nothing to calibrate
+
+    # -- per-frame pipeline ---------------------------------------------------
+
+    def process(self, scan, timestamp: float) -> FrameResult:
+        """One frame: featurize → track → keyframe gate → backend.
+
+        ``scan``: a PointBatch (on any device; the frame copies it to the
+        system's), or a list holding the one LiDAR's PointBatch."""
+        scans = scan if isinstance(scan, (list, tuple)) else [scan]
+        if len(scans) != self.config.n_lidars:
+            raise ValueError(f"expected {self.config.n_lidars} scans, got {len(scans)}")
+        s0 = scans[0]
+        self.tracker_state, out, edge, surf, scan_grid = self._fused_step(
+            self.tracker_state, s0.xyz, s0.mask, s0.attr, timestamp
+        )
+        return self._finish_frame(timestamp, out, edge, surf, scan_grid)
+
+    def _finish_frame(self, timestamp, out, edge, surf, scan_grid) -> FrameResult:
+        """Keyframe gate → backend hand-off → FrameResult. All per-frame
+        scalars come down in ONE copy before the gate; pose bookkeeping is
+        host numpy (se3np)."""
+        odom_pose, converged, num_matches = _read_back(out)
+
+        backend_out: Optional[BackendOutput] = None
+        is_kf = self.gate.need_update(odom_pose, timestamp)
+        if is_kf:
+            grid_kw = scan_grid if self.backend.config.dynamic_carve_knn > 0 else None
+            backend_out = self.backend.add_keyframe(
+                timestamp, edge, surf, odom_pose, scan_grid=grid_kw
+            )
+
+        if backend_out is not None and backend_out.keyframe_id >= 0:
+            map_pose = np.asarray(backend_out.map_pose)
+        else:
+            map_pose = np.asarray(
+                se3np.pose_compose(self.backend.odom2map, odom_pose), np.float32
+            )
+        result = FrameResult(
+            timestamp=float(timestamp),
+            odom_pose=odom_pose,
+            map_pose=map_pose,
+            mode=self.backend.mode,
+            is_keyframe=is_kf,
+            keyframe_id=(backend_out.keyframe_id if backend_out else -1),
+            loop_closed=bool(backend_out.loop_closed) if backend_out else False,
+            converged=converged,
+            num_matches=num_matches,
+            calib_status=self.calib_status,
+        )
+        self.results.append(result)
+        return result
+
+    # -- trajectory / map export ----------------------------------------------
+
+    def trajectory(self) -> np.ndarray:
+        """Per-frame map-frame poses (N, 7)."""
+        if not self.results:
+            return np.zeros((0, 7), np.float32)
+        return np.stack([r.map_pose for r in self.results])
+
+    def keyframe_trajectory(self) -> np.ndarray:
+        """Optimized keyframe poses from the backend database (K, 7)."""
+        return self.backend.db.map_poses[: self.backend.db.n_keyframes].copy()
+
+    def global_map(self, voxel_size: float = 0.0) -> np.ndarray:
+        """Assemble the global map from all keyframe clouds at their current
+        optimized poses. Returns a compact (M, 3) numpy array."""
+        db = self.backend.db
+        if db.n_keyframes == 0:
+            return np.zeros((0, 3), np.float32)
+        edge, surf = db.local_map_ids(np.arange(db.n_keyframes))
+        pts = np.concatenate([edge.to_numpy(), surf.to_numpy()])
+        if voxel_size > 0:
+            keys = np.floor(pts / voxel_size).astype(np.int64)
+            _, idx = np.unique(keys, axis=0, return_index=True)
+            pts = pts[idx]
+        return pts
+
+    def force_global_optimize(self):
+        return self.backend.force_global_optimize()
+
+    def flush(self):
+        """Drain the backend: a no-op, the sync backend has nothing queued."""
+
+    # -- persistence ------------------------------------------------------------
+
+    def save(self, path: str):
+        self.backend.save(path)
+
+    @classmethod
+    def load(cls, path: str, config: SystemConfig = SystemConfig(),
+             storage_dir: Optional[str] = None, device="cuda") -> "MultiLidarSystem":
+        """Boot from a saved lifelong database → backend starts in
+        RELOCALIZATION."""
+        backend = LifelongBackend.load(
+            path, storage_dir=storage_dir, config=config.lifelong, loop_config=config.loop
+        )
+        return cls(config=config, backend=backend, device=device)

@@ -1,7 +1,8 @@
 """The port stands alone: neither ``lmsf_slam_tpu_torch`` nor ``chip_smoke.py``
 imports ``jax`` or the reference package ``lmsf_slam_tpu``, at run time
 (every module imported in a fresh interpreter) or in the source (no import
-statement names them)."""
+statement names them). Importing the package does not import ``yaml`` either:
+the machine with the card has none, and only the config loader needs it."""
 import ast
 import os
 import shutil
@@ -14,6 +15,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "lmsf_slam_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "lmsf_slam_tpu")
+# not imported when the package and chip_smoke.py are (it may be imported
+# inside the function that loads a YAML file)
+FORBIDDEN_AT_IMPORT = FORBIDDEN + ("yaml",)
 
 
 def _forbidden(name: str) -> bool:
@@ -33,14 +37,14 @@ def test_port_imports_no_jax_at_run_time():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN_AT_IMPORT!r}))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module of the slice was imported
+    assert int(out.stdout.split()[-1]) >= 33  # every module of the slices was imported
 
 
 def test_port_source_names_no_jax():
@@ -98,4 +102,4 @@ def test_every_entry_point_defaults_to_the_card():
             if param is not None and param.default is not inspect.Parameter.empty:
                 seen.append(fn.__qualname__)
                 assert param.default == "cuda", (mod.__name__, fn.__qualname__, param.default)
-    assert len(seen) >= 9, seen  # build_fused_step, tracker_init, PointBatch.empty, ...
+    assert len(seen) >= 14, seen  # MultiLidarSystem, KeyframeDatabase, build_fused_step, ...

@@ -138,6 +138,21 @@ def test_choose_splits_fills_the_card(Q, N):
     assert S <= 65535 and pk.slice_length(N, S) >= pk.MIN_SLICE
 
 
+@pytest.mark.parametrize("Q,N", [(384, 2688), (1536, 10752), (384, 3840), (1536, 15360),
+                                 (384, 4224), (1536, 16896)])
+def test_choose_splits_at_the_backend_local_maps(Q, N):
+    """The backend's local maps (7, 10 and 11 keyframes of 384 edge or 1536
+    surf points): several slices of MIN_SLICE..MAX_SLICE points that start
+    16-point aligned and cover the map exactly once. (The edge shapes stay
+    under 264 blocks: a slice is never cut below MIN_SLICE.)"""
+    S = pk.choose_splits(Q, N)
+    slice_len, bounds = pk.slice_length(N, S), pk.slice_bounds(N, S)
+    assert S > 1 and pk.MIN_SLICE <= slice_len <= pk.MAX_SLICE and slice_len % pk.ALIGN == 0
+    covered = np.concatenate([np.arange(b, e) for b, e in bounds])
+    np.testing.assert_array_equal(covered, np.arange(N))
+    assert -(-Q // (pk.THREADS // pk.LANES)) * S >= 120
+
+
 @pytest.mark.parametrize("Q,N", [(77, 333), (1, 1), (40, 300), (1920, 255)])
 def test_choose_splits_is_one_for_tiny_problems(Q, N):
     assert pk.choose_splits(Q, N) == 1

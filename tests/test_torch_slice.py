@@ -8,13 +8,23 @@ of 4 scans. Front end: features bit-identical each frame (the same float32
 formulas, no reduction across points). Tracker: the reference evaluated in
 float64, as in ``tests/test_torch_tracker.py``; pose within 1e-4 m and
 1e-4 rad a frame, ``map_updated`` identical. Keyframe decisions identical.
+
+The slice as a whole is ``MultiLidarSystem.process`` over the closed course
+of ``tests/test_torch_lifelong.py``. The reference side is the reference's
+own ``MultiLidarSystem`` behind the port's tracker (see ``ReferenceSystem``):
+its front end, its ``_finish_frame`` (keyframe gate, float32 lifelong
+backend, FrameResult) as it ships. Decisions are compared exactly; poses at
+the tolerances of that file (1e-4 m while mapping, 5e-2 m once the float32
+reference localizes).
 """
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from lmsf_slam_tpu.common.pointcloud import PointBatch as JPB
 from lmsf_slam_tpu.evaluation import metrics as jmetrics
@@ -23,10 +33,21 @@ from lmsf_slam_tpu.ops import preprocess as jp
 from lmsf_slam_tpu.ops.registration import RegistrationParams as JRP
 from lmsf_slam_tpu.system import ml_system as jsys
 from lmsf_slam_tpu.tracker import tracker as jt
+from lmsf_slam_tpu.backend import lifelong as jll
+from lmsf_slam_tpu.backend import loop_closure as jlc
+from lmsf_slam_tpu.system import config as jconfig
+from lmsf_slam_tpu.utils.profiling import StageTimer as JStageTimer
+from lmsf_slam_tpu_torch.backend import lifelong as pll
+from lmsf_slam_tpu_torch.backend import loop_closure as plc
 from lmsf_slam_tpu_torch.common import se3np
+from lmsf_slam_tpu_torch.common.pointcloud import PointBatch as PPB
+from lmsf_slam_tpu_torch.system import MultiLidarSystem
+from lmsf_slam_tpu_torch.system import config as pconfig
+from lmsf_slam_tpu_torch.utils.profiling import StageTimer
 from lmsf_slam_tpu_torch.evaluation import metrics as pmetrics
 from lmsf_slam_tpu_torch.system import ml_system as psys
 from lmsf_slam_tpu_torch.tracker import tracker_init
+from tests.test_torch_lifelong import LIFELONG, LOOP, carry_database, loop_course
 from tests.test_torch_tracker import assert_frame, reference_step64, sim_course, widen_state
 
 N_FRAMES = 6
@@ -157,3 +178,207 @@ def test_ate_matches_reference(align):
     np.testing.assert_allclose(R, Rj, atol=1e-12)
     np.testing.assert_allclose(t, tj, atol=1e-12)
     assert sc == pytest.approx(scj, rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole: MultiLidarSystem.process
+# ---------------------------------------------------------------------------
+
+SYSTEM = dict(tracker_window=6, map_update_trans=0.2, keyframe_trans=0.8)
+REG = dict(max_iters=8, max_corr_dist=2.0)
+
+
+def _system_configs(**kw):
+    kw = {**SYSTEM, **kw}
+    j = jsys.SystemConfig(feature=jsys.FeatureParams(**FEATURE), registration=JRP(**REG),
+                          lifelong=jll.LifelongConfig(**LIFELONG), loop=jlc.LoopConfig(**LOOP), **kw)
+    p = psys.SystemConfig(feature=psys.FeatureParams(**FEATURE),
+                          registration=psys.RegistrationParams(**REG),
+                          lifelong=pll.LifelongConfig(**LIFELONG), loop=plc.LoopConfig(**LOOP), **kw)
+    return j, p
+
+
+class ReferenceSystem:
+    """The reference's ``MultiLidarSystem`` behind the port's tracker.
+
+    The reference's float64 ``tracker_step`` takes 3–12 s a frame on the CPU,
+    and ``test_fused_step_matches_reference`` above already holds the port's
+    tracker to it (1e-4 m a frame). So here each frame runs the reference's
+    own front end (features asserted bit-equal to the port's), takes the
+    tracked pose, convergence flag and match count from the port's frame,
+    and hands them to the reference system's own ``_finish_frame``: its
+    keyframe gate, its float32 lifelong backend and its FrameResult, as they
+    ship."""
+
+    def __init__(self, jcfg, backend=None):
+        self.system = jsys.MultiLidarSystem(jcfg, backend=backend)
+        f = jcfg.feature
+
+        @jax.jit
+        def front_end(xyz, mask, attr):
+            grid = jf.organize_scan(jp.preprocess(JPB(xyz, mask, attr), jcfg.preprocess),
+                                    rings=f.rings, width=f.width)
+            feats = jf.extract_loam_features(
+                grid, sectors=f.sectors, edges_per_sector=f.edges_per_sector,
+                surfs_per_sector=f.surfs_per_sector)
+            return feats.edge, feats.surf
+
+        self.front_end = front_end
+
+    def process(self, scan, t, frame):
+        edge, surf = self.front_end(*map(jnp.asarray, scan))
+        out = SimpleNamespace(pose=frame.odom_pose, registration=SimpleNamespace(
+            converged=np.bool_(frame.converged), num_matches=np.int32(frame.num_matches)))
+        return self.system._finish_frame(t, out, edge, surf, None)
+
+
+def _run_both(ref, port, scans, stamps):
+    for scan, t in zip(scans, stamps):
+        frame = port.process(_port_scan(scan), t)
+        ref.process(scan, t, frame)
+
+
+def _port_scan(scan):
+    return PPB(*(torch.as_tensor(a) for a in scan))
+
+
+def assert_same_frames(want, got):
+    assert len(want) == len(got)
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert (g.mode.name, g.is_keyframe, g.keyframe_id, g.loop_closed, g.converged,
+                g.calib_status) == (w.mode.name, w.is_keyframe, w.keyframe_id, w.loop_closed,
+                                    w.converged, w.calib_status), i
+        np.testing.assert_allclose(g.odom_pose, w.odom_pose, atol=1e-4, err_msg=str(i))
+        tol = 1e-4 if g.mode is pll.WorkMode.MAPPING and not g.loop_closed else 5e-2
+        np.testing.assert_allclose(g.map_pose, w.map_pose, atol=tol, err_msg=str(i))
+
+
+@pytest.fixture(scope="module")
+def looped_run():
+    traj, scans = loop_course()
+    jcfg, pcfg = _system_configs()
+    ref, port = ReferenceSystem(jcfg), MultiLidarSystem(pcfg, device="cpu")
+    _run_both(ref, port, scans, [0.1 * i for i in range(len(scans))])
+    return ref.system, port, traj, scans
+
+
+def test_multilidar_system_matches_reference_over_a_looped_course(looped_run):
+    ref, port, traj, _ = looped_run
+    assert_same_frames(ref.results, port.results)
+    jh, ph = ref.backend.history, port.backend.history
+    assert [(h.mode.name, h.keyframe_id, bool(h.loop_closed)) for h in ph] == [
+        (h.mode.name, h.keyframe_id, bool(h.loop_closed)) for h in jh]
+    assert sum(h.loop_closed for h in ph) >= 1
+    assert port.backend.mode is pll.WorkMode.LOCALIZATION
+    assert port.backend.solver_runs == ref.backend.solver_runs
+    jd, pd = ref.backend.db, port.backend.db
+    assert (pd.n_keyframes, pd.n_edges) == (jd.n_keyframes, jd.n_edges)
+    np.testing.assert_array_equal(pd.eij[:pd.n_edges], jd.eij[:jd.n_edges])  # the loop edge ids
+    np.testing.assert_array_equal(pd.eloop[:pd.n_edges], jd.eloop[:jd.n_edges])
+    np.testing.assert_array_equal(pd.edge_mask[:pd.n_keyframes], jd.edge_mask[:jd.n_keyframes])
+    np.testing.assert_allclose(port.trajectory(), ref.trajectory(), atol=5e-2)
+    np.testing.assert_allclose(port.keyframe_trajectory(), ref.keyframe_trajectory(), atol=5e-3)
+    gt = se3np.pose_between(traj[:1], traj)
+    assert pmetrics.ate_stats(port.trajectory(), gt).rmse < 0.2
+
+
+def test_system_exports(looped_run):
+    ref, port, _, _ = looped_run
+    assert port.trajectory().shape == (len(port.results), 7)
+    pts = port.global_map(voxel_size=0.5)
+    want = ref.global_map(voxel_size=0.5)
+    assert pts.ndim == 2 and pts.shape[1] == 3 and np.isfinite(pts).all()
+    assert abs(pts.shape[0] - want.shape[0]) <= 0.02 * want.shape[0]
+    assert port.flush() is None
+    assert port.calib_status == 2 and port.extrinsics == []
+    empty = MultiLidarSystem(_system_configs()[1], device="cpu")
+    assert empty.trajectory().shape == (0, 7) and empty.global_map().shape == (0, 3)
+    assert empty.force_global_optimize() is None
+    with pytest.raises(ValueError, match="expected 1 scans"):
+        empty.process([None, None], 0.0)
+
+
+def test_reboot_through_the_system_relocalizes_like_the_reference(looped_run):
+    """A second run on the first one's database (the reference's, carried
+    across with ``keyframe_db_from_numpy``): both systems boot in
+    RELOCALIZATION with a fresh tracker, are fed the course from its 12th
+    frame, relocalize on the same frame and report map poses in the first
+    run's frame."""
+    ref, _, traj, scans = looped_run
+    jcfg, pcfg = _system_configs()
+    jb = jll.LifelongBackend(db=ref.backend.db, config=jcfg.lifelong, loop_config=jcfg.loop)
+    pb = pll.LifelongBackend(db=carry_database(ref.backend.db), config=pcfg.lifelong,
+                             loop_config=pcfg.loop)
+    assert pb.mode is pll.WorkMode.RELOCALIZATION
+    ref2, port2 = ReferenceSystem(jcfg, backend=jb), MultiLidarSystem(pcfg, backend=pb, device="cpu")
+    start = 12
+    _run_both(ref2, port2, scans[start:start + 8], [100.0 + 0.1 * i for i in range(8)])
+    assert_same_frames(ref2.system.results, port2.results)
+    modes = [r.mode for r in port2.results]
+    assert modes[0] is pll.WorkMode.LOCALIZATION  # the first keyframe relocalizes
+    gt = se3np.pose_between(traj[0], traj[start:start + 8])
+    err = np.linalg.norm(port2.trajectory()[:, 4:] - gt[:, 4:], axis=1)
+    assert err.max() < 0.5  # the map itself is ~0.15 m ATE at this coarse size
+
+
+def test_unported_system_paths_are_rejected():
+    _, pcfg = _system_configs()
+    for bad, item in ((dict(n_lidars=2), "item 13"), (dict(use_imu=True), "item 12"),
+                      (dict(async_backend=True), "item 10"),
+                      (dict(registration_method="sparse_point_plane_icp"), "items 8 and 14")):
+        with pytest.raises(NotImplementedError, match=item):
+            MultiLidarSystem(pcfg._replace(**bad), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        MultiLidarSystem(pcfg, device="cpu").save("x.npz")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        MultiLidarSystem.load("x.npz", pcfg, device="cpu")
+    assert psys.FrameResult._fields == jsys.FrameResult._fields
+
+
+def test_yaml_config_matches_reference(tmp_path):
+    path = "config/default.yaml"
+    want, got = jconfig.system_config_from_yaml(path), pconfig.system_config_from_yaml(path)
+
+    def flat(t):
+        return {k: flat(v) if hasattr(v, "_asdict") else v for k, v in t._asdict().items()}
+
+    assert flat(got) == flat(want)
+    assert got.lifelong.optimize_window == 50 and got.async_backend is True
+    with pytest.raises(NotImplementedError, match="item 10"):
+        MultiLidarSystem(got, device="cpu")  # the file asks for the worker-thread backend
+    assert MultiLidarSystem(got._replace(async_backend=False), device="cpu").backend.db.n_keyframes == 0
+    doc = dict(keyframe_rot_deg=10.0, loop=dict(adjacent_window="3"), deskew=1)
+    assert flat(pconfig.system_config_from_dict(doc)) == flat(jconfig.system_config_from_dict(doc))
+    with pytest.raises(KeyError, match="unknown config key 'loop.adjacent'"):
+        pconfig.system_config_from_dict(dict(loop=dict(adjacent=3)))
+    with pytest.raises(TypeError, match="expected a mapping"):
+        pconfig._merge(psys.SystemConfig(), [1])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        pconfig.system_config_from_dict(dict(lifelong=dict(occupancy=dict(size=64))))
+    dup = tmp_path / "dup.yaml"
+    dup.write_text("n_lidars: 1\nfeature:\n  rings: 16\nn_lidars: 2\n")
+    for mod in (jconfig, pconfig):
+        with pytest.raises(KeyError, match="duplicate config key 'n_lidars'"):
+            mod.system_config_from_yaml(str(dup))
+
+
+def test_stage_timer_matches_reference(tmp_path):
+    samples = {"kf_insert": [0.004, 0.002, 0.009], "optimize_full": [0.25]}
+    pt_, jt_ = StageTimer(), JStageTimer()
+    for timer in (pt_, jt_):
+        for label, xs in samples.items():
+            for x in xs:
+                timer.add(label, x)
+    assert pt_.stats() == jt_.stats()
+    assert pt_.report() == jt_.report()
+    pt_.save_json(str(tmp_path / "p.json"))
+    jt_.save_json(str(tmp_path / "j.json"))
+    assert (tmp_path / "p.json").read_text() == (tmp_path / "j.json").read_text()
+    pt_.save_csv(str(tmp_path / "p.csv"), "kf_insert")
+    jt_.save_csv(str(tmp_path / "j.csv"), "kf_insert")
+    assert (tmp_path / "p.csv").read_text() == (tmp_path / "j.csv").read_text()
+    with pt_("stage", block_on=torch.zeros(1)):  # a CPU tensor: nothing to wait for
+        pass
+    with pt_("stage", block_on="cpu"):
+        pass
+    assert pt_.stats()["stage"]["n"] == 2
