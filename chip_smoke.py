@@ -53,14 +53,57 @@ Phases, one line each:
              its middle and must relocalize within 10 keyframes and then stay
              within 0.5 m of the ground truth expressed in the map frame.
 
-Then the card's name and power limit, one JSON line of kernel numbers, and
-the result line ``{"ok": true, "device": {...}}`` last.
+7. async   — the closed course of phase backend again through
+             ``MultiLidarSystem(config._replace(async_backend=True))``: the
+             backend on its worker thread, policy ``coalesce``, then
+             ``flush()``. Checks: nothing dropped, the same loop edges and
+             final mode as the sync run, map-frame ATE under 0.15 m and within
+             0.02 m of the sync run's. Prints sync beside async: frame times,
+             keyframe-frame times, the peak backlog, ``coalesced``, stages;
+8. city    — this slice's path at full width: the first 500 frames of the
+             city course (a street grid of 3 × 2 blocks, 18 buildings and 136
+             trunks, 8 moving cars), HDL-64 scans (64 × 1800, 2.5–80 m, noise
+             0.01 m) rendered on the card, 1536 edge and 3072 surf features a
+             frame, through the lifelong deployment: worker-thread backend,
+             insert probation and map carving in the tracker, trimmed
+             registration, carving of the 3 nearest stored keyframes, the
+             unsupported-point gate, a 1536 × 1536 occupancy grid at 0.25 m,
+             windowed solves over 100 keyframes, the loop detector's
+             unrelaxed 0.05 score gates, the keyframe payload in memmaps on
+             disk. (One cut: the submap Schur solve is off, the replicated
+             full solve runs.) Checks: finite poses, a loop closed, a
+             windowed solve, LOCALIZATION reached, no keyframe dropped, points
+             carved and every carved row's mirror masks equal to the host's,
+             a grid with occupied and free cells inside its clip, map-frame
+             ATE under 0.5 m and under odometry's, frames after the loop
+             closure that carry the worker's correction, and that the card
+             repeats: ``voxel_downsample`` and the first 20 frames' odometry
+             bit for bit in a second run;
+9. persist — ``system.save`` of that run (memmap checkpoint), the system
+             dropped, ``MultiLidarSystem.load(path, config, device="cuda")``:
+             boots in RELOCALIZATION with the grid rebuilt from the database,
+             is fed 100 frames of a street the first session mapped (no
+             cars), must relocalize within 10 keyframes and then stay within
+             0.5 m of the ground truth in the first session's map frame; the
+             checkpoint's files are byte-equal before and after. Also a
+             RAM-mode save → load round trip of the same database;
+10. merge  — a second session maps 120 frames of a stretch the first also
+             drove, in its own map frame; ``align_sessions`` must find at
+             least 3 consistent matches and the transform within 0.5 m / 2°
+             of the truth; ``merge_sessions`` then a full solve: counts add
+             up, inter-session edges are loop edges, finite poses.
+
+Temporary files go under ``build/chip_smoke_tmp`` and are removed. Then the
+card's name and power limit, one JSON line of kernel numbers, and the result
+line ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -105,6 +148,45 @@ BACKEND_SHAPES = [
     ("loc10 edge 384x3840 k=5", 384, 3840), ("loc10 surf 1536x15360 k=5", 1536, 15360),
     ("loop11 edge 384x4224 k=5", 384, 4224), ("loop11 surf 1536x16896 k=5", 1536, 16896),
 ]
+
+
+# the city course's k-NN shapes: 1536 edge and 3072 surf features a frame
+# against the tracker's registration maps (8192 / 16384), the probation gate's
+# nn1 (4608 new points against the 24576-point map and the 4608-point
+# probation set), localization on 10 keyframes, loop verification and
+# relocalization on 9 (adjacent_window=4), and the unsupported-point gate
+# against the 10 keyframes' edge and surf maps together (46080 points)
+CITY_SHAPES = [
+    ("city frame edge 1536x8192 k=5", 1536, 8192, 5),
+    ("city frame surf 3072x16384 k=5", 3072, 16384, 5),
+    ("city probation nn1 4608x24576 k=1", 4608, 24576, 1),
+    ("city probation nn1 4608x4608 k=1", 4608, 4608, 1),
+    ("city loc10 edge 1536x15360 k=5", 1536, 15360, 5),
+    ("city loc10 surf 3072x30720 k=5", 3072, 30720, 5),
+    ("city loop9 edge 1536x13824 k=5", 1536, 13824, 5),
+    ("city loop9 surf 3072x27648 k=5", 3072, 27648, 5),
+    ("city unsupported edge 1536x46080 k=1", 1536, 46080, 1),
+    ("city unsupported surf 3072x46080 k=1", 3072, 46080, 1),
+]
+
+# phases async, city, persist and merge
+ASYNC_ATE_SLACK = 0.02  # m, async map-frame ATE against the sync run's
+CITY_SEED = 0
+# 500 frames: the graph passes optimize_window + 1 = 101 keyframes (one every
+# third frame) near frame 410, so that a windowed solve runs; the block's
+# perimeter closes its loop near frame 250
+CITY_FRAMES = 500
+CITY_ATE_LIMIT = 0.5  # m
+CITY_CORRECTION_M = 0.05  # a frame whose map pose is this far from its odometry pose is corrected
+CITY_REPEAT_FRAMES = 20  # the first frames, run twice: the odometry must repeat bit for bit
+CITY_KNN_PER_FRAME = 10  # 4 associations × (edge + surf) + the probation gate's two nn1
+CITY_REBOOT_START = 60  # the rebooted session drives frames 60..159 of the course
+CITY_REBOOT_FRAMES = 100
+MERGE_START = 20  # the second session maps frames 20..139
+MERGE_FRAMES = 120
+MERGE_LIMIT_M = 0.5
+MERGE_LIMIT_DEG = 2.0
+TMP = os.path.join(ROOT, "build", "chip_smoke_tmp")
 
 
 class SmokeFailure(RuntimeError):
@@ -255,6 +337,47 @@ def merge_bound_ms(Q, S, k):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def threads_check(K, rounds=200):
+    """The kernels launched from two threads at once, as the frontend and the
+    backend's worker launch them (each thread takes the current stream and
+    its scratch from the allocator on its own): every result must equal, bit
+    for bit, the one the same inputs gave on one thread. Returns the number
+    of launches compared."""
+    import threading
+
+    import torch
+
+    dev = torch.device("cuda")
+    jobs = []
+    for seed, (Q, N, k) in enumerate(((1536, 8192, 5), (3072, 46080, 1))):
+        q, qm, r, rm = knn_case(Q, N, 3, 0.7, seed=100 + seed, dev=dev)
+        jobs.append((q, qm, r, rm, k, K.knn_cuda(q, qm, r, rm, k, neighbors=True)))
+    torch.cuda.synchronize()
+    failures = []
+
+    def worker(job):
+        q, qm, r, rm, k, want = job
+        try:
+            with torch.cuda.device(dev):
+                for _ in range(rounds):
+                    got = K.knn_cuda(q, qm, r, rm, k, neighbors=True)
+                    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                        failures.append(f"{tuple(q.shape)}x{tuple(r.shape)} k={k} differs")
+                        return
+        except Exception as exc:  # noqa: BLE001 - reported by the caller's check
+            failures.append(repr(exc))
+
+    threads = [threading.Thread(target=worker, args=(job,)) for job in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    torch.cuda.synchronize()
+    check(not any(t.is_alive() for t in threads), "a launching thread did not finish")
+    check(not failures, f"kernels launched from two threads at once: {failures}")
+    return rounds * len(jobs)
+
+
 def phase_kernel(K):
     import torch
 
@@ -284,7 +407,8 @@ def phase_kernel(K):
         ("no valid ref 64x1000 k=5 S=2", 64, 1000, 5, 0, 0, False, 2),
         ("no valid query 64x1000 k=5 S=2", 64, 1000, 5, 64, 0.8, False, 2),
         ("k>valid 40x3000 k=8 S=6", 40, 3000, 8, 5, 5, False, 6),
-    ] + [(name, Q, N, 5, 0, 0.7, False, None) for name, Q, N in BACKEND_SHAPES]
+    ] + [(name, Q, N, 5, 0, 0.7, False, None) for name, Q, N in BACKEND_SHAPES] + [
+        (name, Q, N, k, 0, 0.7, False, None) for name, Q, N, k in CITY_SHAPES]
     results = {}
     timed = {}
     for i, (name, Q, N, k, qi, valid, dup, forced) in enumerate(cases):
@@ -298,7 +422,7 @@ def phase_kernel(K):
                "slice_len": slice_len, "blocks": blocks, "max_abs_err": err,
                "near_tie_rows": n_tie, "equals_single_scan_model": small}
         results[name] = row
-        if name.startswith(("edge", "surf", "nn1", "loop", "loc")):
+        if name.startswith(("edge", "surf", "nn1", "loop", "loc", "city")):
             timed[name] = (q, qm, r, rm, k)
             continue
         log("kernel", f"{name}: S={S} (slices of {slice_len}), {blocks} blocks; agrees with "
@@ -308,7 +432,8 @@ def phase_kernel(K):
     for name in ("edge 384x8192 k=5", "surf 1536x16384 k=5"):
         check(results[name]["blocks"] >= 264,
               f"{name}: grid of {results[name]['blocks']} blocks, fewer than 264")
-    for name, _, _ in BACKEND_SHAPES:  # choose_splits gives a sane grid at the new shapes
+    # choose_splits gives a sane grid at the backend's and the city's shapes
+    for name in [c[0] for c in BACKEND_SHAPES + CITY_SHAPES]:
         row = results[name]
         check(K.MIN_SLICE <= row["slice_len"] <= K.MAX_SLICE and row["slice_len"] % K.ALIGN == 0
               and row["splits"] > 1,
@@ -355,6 +480,11 @@ def phase_kernel(K):
             f"at Python's pace), plain {row['plain_ms']:.4f} ms, cdist+topk {l1:.4f} ms, "
             f"bound {bound:.6f} ms ({by}), empty launch {empty_ms:.5f} ms; "
             f"max |Δd| {row['max_abs_err']:.3g}, near-tie rows {row['near_tie_rows']}")
+
+    n_threaded = threads_check(K)
+    log("kernel", f"two threads launching at once ({n_threaded} launches of 1536x8192 k=5 and "
+        "3072x46080 k=1 with neighbour coordinates): every result equal, bit for bit, to the "
+        "one-thread result")
 
     # the merge kernel alone, at the surf shape, against its plain version
     q, qm, r, rm, k = timed["surf 1536x16384 k=5"]
@@ -713,7 +843,7 @@ def phase_backend(traj, scans):
         "frames": n, "keyframe_frames": int(n_kf_frames), "keyframes_stored": int(db.n_keyframes),
         "edges": int(db.n_edges), "loops_closed": len(closed), "first_loop_frame": closed[0],
         "loop_edges": db.eij[:db.n_edges][db.eloop[:db.n_edges]].tolist(),
-        "final_mode": backend.mode.name, "solver_runs": runs,
+        "final_mode": backend.mode.name, "solver_runs": runs, "solves": backend.solve_log,
         "ate_map_m": ate_map, "ate_odom_m": ate_odom,
         "frame_ms_median": float(np.median(ms)), "frame_ms_p90": float(np.percentile(ms, 90)),
         "frame_ms_median_no_kf": float(np.median(ms[~is_kf])),
@@ -745,6 +875,8 @@ def phase_backend(traj, scans):
         f"{solve['padded_edges']}): {solve['ms_median']:.1f} ms (median of {len(solve['ms'])}), "
         f"{solve['iterations']} GN iterations, chi2 {solve['chi2_initial']:.4g} → "
         f"{solve['chi2_final']:.4g}; the edge Jacobians alone {solve['jacobians_ms_median']:.1f} ms")
+    log("backend", "GN iterations a solve: " + ", ".join(
+        f"{s_['kind']}@{s_['keyframes']}:{s_['iterations']}" for s_ in backend.solve_log))
     log("backend", f"knn launches {launches['knn']} (+{launches['knn_merge']} merges): "
         f"{per_frame} a frame and {out['knn_launches_per_backend_keyframe']:.1f} more a keyframe "
         f"frame; mirror {out['mirror_bytes'] / 2**20:.2f} MiB in {out['mirror_rows']} rows; peak "
@@ -807,6 +939,580 @@ def phase_reboot(traj, scans, first):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the worker-thread backend on the closed course
+# ---------------------------------------------------------------------------
+
+
+def frame_stats(times, is_kf):
+    ms = np.asarray(times) * 1e3
+    is_kf = np.asarray(is_kf, bool)
+    return {
+        "frame_ms_median": float(np.median(ms)), "frame_ms_p90": float(np.percentile(ms, 90)),
+        "frame_ms_max": float(ms.max()), "frame_ms_first": float(ms[0]),
+        "frame_ms_max_after_first": float(ms[1:].max()),
+        "frame_ms_median_kf": float(np.median(ms[is_kf])), "frame_ms_max_kf": float(ms[is_kf].max()),
+        "frame_ms_median_no_kf": float(np.median(ms[~is_kf])),
+        "frame_ms_all": ms.tolist(), "is_keyframe": is_kf.tolist(),
+    }
+
+
+def stage_line(stats):
+    return "; ".join(f"{k} {v['n']}, {v['mean_ms']:.2f}, {v['median_ms']:.2f}, {v['max_ms']:.2f}"
+                     for k, v in sorted(stats.items()))
+
+
+def phase_async(traj, scans, sync):
+    """The closed course with the backend on its worker thread, beside the
+    sync run of phase backend (``sync``: that phase's numbers)."""
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.evaluation import ate_stats
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    cfg = backend_config()._replace(async_backend=True, async_policy="coalesce")
+    n = len(scans)
+    system = MultiLidarSystem(cfg, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    backlog = []
+    results, times = drive(system, scans, [0.1 * i for i in range(n)],
+                           stop=lambda s, r: backlog.append(s._async.backlog))
+    t0 = time.perf_counter()
+    system.flush()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    ab, backend, db = system._async, system.backend, system.backend.db
+    est = system.trajectory()
+    check(np.isfinite(est).all(), "non-finite pose with the async backend")
+    check(ab.dropped == 0, f"the async backend dropped {ab.dropped} keyframes")
+    loop_edges = db.eij[:db.n_edges][db.eloop[:db.n_edges]].tolist()
+    check(loop_edges == sync["loop_edges"],
+          f"async closed loops {loop_edges}, the sync run {sync['loop_edges']}")
+    check(backend.mode.name == sync["final_mode"],
+          f"async ended in {backend.mode.name}, the sync run in {sync['final_mode']}")
+    gt = np.stack([se3np.pose_between(traj[0], traj[i]) for i in range(n)])
+    ate = ate_stats(est, gt).rmse
+    check(ate < ATE_LIMIT, f"async map-frame ATE {ate:.4f} m ≥ {ATE_LIMIT} m")
+    check(abs(ate - sync["ate_map_m"]) <= ASYNC_ATE_SLACK,
+          f"async map-frame ATE {ate:.4f} m, the sync run's {sync['ate_map_m']:.4f} m")
+    per_frame = 2 * 4  # as in phase backend: what the frontend thread launches
+    for name in ("knn", "knn_merge"):  # the rest came from the worker thread
+        check(launches.get(name, 0) > per_frame * n,
+              f"{name}: {launches.get(name, 0)} launches on the async path, the frontend's "
+              f"frames alone make {per_frame * n}: the worker thread launched none")
+    stats = backend.timer.stats()
+    out = {**frame_stats(times, [r.is_keyframe for r in results]),
+           "ate_map_m": ate, "loop_edges": loop_edges, "final_mode": backend.mode.name,
+           "keyframes_stored": int(db.n_keyframes), "dropped": ab.dropped,
+           "coalesced": ab.coalesced, "backlog_peak": int(max(backlog)), "flush_ms": flush_ms,
+           "solver_runs": dict(backend.solver_runs), "solves": backend.solve_log,
+           "stage_ms": stats, "knn_launches": launches["knn"],
+           "knn_merge_launches": launches["knn_merge"]}
+    ab.close()
+    log("async", f"{n} frames, policy coalesce: {db.n_keyframes} keyframes stored, dropped 0, "
+        f"coalesced {ab.coalesced}, peak backlog {out['backlog_peak']}, final flush "
+        f"{flush_ms:.1f} ms; loop edges {loop_edges}, mode {backend.mode.name}; ATE map frame "
+        f"{ate:.4f} m (sync {sync['ate_map_m']:.4f} m)")
+    log("async", "ms/frame sync | async: median "
+        f"{sync['frame_ms_median']:.2f} | {out['frame_ms_median']:.2f}, p90 "
+        f"{sync['frame_ms_p90']:.2f} | {out['frame_ms_p90']:.2f}, max "
+        f"{sync['frame_ms_max']:.1f} | {out['frame_ms_max']:.1f}; keyframe frames median "
+        f"{sync['frame_ms_median_kf']:.2f} | {out['frame_ms_median_kf']:.2f}, max "
+        f"{max(m for m, k in zip(sync['frame_ms_all'], sync['is_keyframe']) if k):.1f} | "
+        f"{out['frame_ms_max_kf']:.1f}")
+    log("async", "GN iterations a solve: " + ", ".join(
+        f"{s_['kind']}@{s_['keyframes']}:{s_['iterations']}" for s_ in backend.solve_log))
+    log("async", "stage ms on the worker (n, mean, median, max): " + stage_line(stats))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the lifelong deployment on the city course
+# ---------------------------------------------------------------------------
+
+
+def city_config(extras=True):
+    """The city run's configuration at HDL-64 width: with ``extras`` the
+    dynamic-object defence and the occupancy grid of the first session; the
+    submap Schur solve is off (not ported), everything else as published."""
+    from lmsf_slam_tpu_torch.backend import LifelongConfig, LoopConfig
+    from lmsf_slam_tpu_torch.datasets import HDL64
+    from lmsf_slam_tpu_torch.mapping import OccupancyConfig
+    from lmsf_slam_tpu_torch.ops.registration import RegistrationParams
+    from lmsf_slam_tpu_torch.system import FeatureParams, SystemConfig
+
+    extras_kw, trim_kw = {}, {}
+    if extras:
+        trim_kw = dict(trim_rel=3.0)
+        extras_kw = dict(dynamic_carve_knn=3, dynamic_gate_unsupported=True,
+                         occupancy=OccupancyConfig(size=1536, resolution=0.25))
+    return SystemConfig(
+        feature=FeatureParams(
+            rings=HDL64["rings"], width=HDL64["width"], sectors=6, edges_per_sector=4,
+            surfs_per_sector=8, range_noise=0.01, exclude_ground_edges=True,
+            one_sided_occlusion=True),
+        registration=RegistrationParams(max_iters=8, max_corr_dist=2.0, degen_rel=0.01, **trim_kw),
+        map_update_trans=0.5,
+        keyframe_trans=2.0,
+        async_backend=True,
+        dynamic_probation=extras,
+        lifelong=LifelongConfig(
+            optimize_window=100,
+            schur_submaps=0,
+            localization_params=RegistrationParams(max_iters=8, max_corr_dist=2.0, degen_rel=0.01),
+            **extras_kw),
+        loop=LoopConfig(  # the loop detector's score gates, unrelaxed (0.05)
+            min_frame_interval=30, exclude_recent=15, detect_spacing=2, search_radius=8.0,
+            adjacent_window=4),
+    )
+
+
+class CityCourse:
+    """The city world, its course and its movers, from one seed; scans are
+    rendered on the card, one a call."""
+
+    def __init__(self, seed=CITY_SEED):
+        from lmsf_slam_tpu_torch.datasets import (
+            make_city_course, make_city_world, make_movers)
+
+        rng = np.random.default_rng(seed)
+        self.world = make_city_world(int(rng.integers(2**31 - 1)))
+        self.movers = make_movers(int(rng.integers(2**31 - 1)))
+        self.traj = make_city_course()
+        self.rng = rng
+
+    def scan(self, frame, movers=True):
+        from lmsf_slam_tpu_torch.datasets import HDL64, simulate_scan, world_with_movers
+
+        w = world_with_movers(self.world, self.movers, frame) if movers else self.world
+        return simulate_scan(w, self.traj[frame], self.rng, rings=HDL64["rings"],
+                             width=HDL64["width"], elev_min=HDL64["elev_min"],
+                             elev_max=HDL64["elev_max"], max_range=80.0, min_range=2.5,
+                             noise=0.01, device="cuda")
+
+    def gt_in_first_map_frame(self, frames):
+        """Ground truth of ``frames`` in the map frame of a session that
+        started at frame 0 (its origin is the first pose of the course)."""
+        from lmsf_slam_tpu_torch.common import se3np
+
+        return np.stack([se3np.pose_between(self.traj[0], self.traj[i]) for i in frames])
+
+
+def drive_city(system, course, frames, movers, stamp0=0.0, keep=None):
+    """Render and feed ``frames``; returns (results, seconds a frame in
+    ``process``, backlog after every frame). ``keep``: (list, count), the
+    first ``count`` scans are appended to the list."""
+    results, times, backlog = [], [], []
+    for i in frames:
+        scan = course.scan(i, movers=movers)
+        if keep is not None and len(keep[0]) < keep[1]:
+            keep[0].append(scan)
+        t0 = time.perf_counter()
+        results.append(system.process(scan, stamp0 + 0.1 * i))
+        times.append(time.perf_counter() - t0)
+        backlog.append(system._async.backlog if system._async is not None else 0)
+    return results, times, backlog
+
+
+def repeat_check(scans, odom_first):
+    """Run to run the card must repeat. ``voxel_downsample`` adds with
+    atomics, in no fixed order: the same cloud five times over must give the
+    same bits. And the kept first frames of the city course through a second
+    system must give the first run's odometry poses bit for bit (a last-bit
+    difference there grows to decimetres over the course)."""
+    import torch
+
+    from lmsf_slam_tpu_torch.ops.voxel import voxel_downsample
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    cells = 0
+    for size, cap in ((0.4, 16384), (0.2, 65536)):
+        first = voxel_downsample(scans[0], size, cap)
+        cells = max(cells, int(first.mask.sum()))
+        for _ in range(4):
+            again = voxel_downsample(scans[0], size, cap)
+            check(torch.equal(again.mask, first.mask) and torch.equal(again.xyz, first.xyz)
+                  and torch.equal(again.attr, first.attr),
+                  f"voxel_downsample at {size} m does not repeat bit for bit on the card")
+    system = MultiLidarSystem(city_config(), device="cuda")
+    odom = np.stack([system.process(scan, 0.1 * i).odom_pose for i, scan in enumerate(scans)])
+    system.flush()
+    system._async.close()
+    same = np.array_equal(odom, odom_first)
+    worst = float(np.abs(odom - odom_first).max())
+    log("city", f"repeat: voxel_downsample of one scan ({cells} cells at most) bit-equal over 5 "
+        f"calls; odometry of the first {len(scans)} frames in a second system "
+        f"{'bit-equal' if same else 'differs'} (max |Δ| {worst:.3g})")
+    check(same, f"the first {len(scans)} city frames do not repeat bit for bit: max |Δ| {worst:.3g}")
+    return {"frames": len(scans), "voxel_cells": cells, "odom_max_abs_diff": worst}
+
+
+def phase_city(course):
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.backend import KeyframeDatabase, LifelongBackend, WorkMode
+    from lmsf_slam_tpu_torch.evaluation import ate_stats
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    cfg = city_config()
+    f = cfg.feature
+    check((f.edge_capacity, f.surf_capacity) == (1536, 3072), "city feature widths")
+    payload = os.path.join(TMP, "city_payload")
+    db = KeyframeDatabase(edge_capacity=f.edge_capacity, surf_capacity=f.surf_capacity,
+                          storage_dir=payload, device="cuda")
+    check(isinstance(db.edge_xyz, np.memmap), "the city database's payload is not disk-backed")
+    carved = {"points": 0, "rows": set()}
+    carve = db.carve
+
+    def counting_carve(i, edge_keep, surf_keep):
+        before = int(db.edge_mask[i].sum()) + int(db.surf_mask[i].sum())
+        carve(i, edge_keep, surf_keep)
+        removed = before - int(db.edge_mask[i].sum()) - int(db.surf_mask[i].sum())
+        if removed:
+            carved["points"] += removed
+            carved["rows"].add(int(i))
+
+    db.carve = counting_carve
+    backend = LifelongBackend(db=db, config=cfg.lifelong, loop_config=cfg.loop)
+    system = MultiLidarSystem(cfg, backend=backend, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    frames = range(CITY_FRAMES)
+    t0 = time.perf_counter()
+    kept = []
+    results, times, backlog = drive_city(system, course, frames, movers=True,
+                                         keep=(kept, CITY_REPEAT_FRAMES))
+    t1 = time.perf_counter()
+    system.flush()
+    flush_ms = (time.perf_counter() - t1) * 1e3
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    ab = system._async
+
+    est = system.trajectory()
+    loops = [h for h in backend.history if h.loop_closed]
+    runs = dict(backend.solver_runs)
+    m = db._mirror_sync()
+    rows = sorted(carved["rows"])
+    grid = system.occupancy_grid()
+    oc = cfg.lifelong.occupancy
+    n_occ, n_free = int((grid > 0).sum()), int((grid < 0).sum())
+    gt = course.gt_in_first_map_frame(frames)
+    odom = np.stack([r.odom_pose for r in results])
+    finite = bool(np.isfinite(est).all() and np.isfinite(odom).all())
+    ate_map = ate_stats(est, gt).rmse if finite else float("nan")
+    ate_odom = ate_stats(odom, gt).rmse if finite else float("nan")
+    n_kf_frames = sum(r.is_keyframe for r in results)
+    # frames that came out with a correction the worker had published by then
+    # (the trajectory is the frames' own map poses, nothing is recomposed
+    # after the flush)
+    shift = np.linalg.norm(est[:, 4:] - odom[:, 4:], axis=1) if finite else np.zeros(0)
+    corrected = np.nonzero(shift > CITY_CORRECTION_M)[0]
+    stats = backend.timer.stats()
+    eij, eloop = db.eij[:db.n_edges], db.eloop[:db.n_edges]
+    out = {
+        **frame_stats(times, [r.is_keyframe for r in results]),
+        "frames": CITY_FRAMES, "wall_s": wall, "flush_ms": flush_ms,
+        "keyframe_frames": int(n_kf_frames), "keyframes_stored": int(db.n_keyframes),
+        "edges": int(db.n_edges), "loops_closed": len(loops), "loop_edges": eij[eloop].tolist(),
+        "modes": sorted({h.mode.name for h in backend.history}), "final_mode": backend.mode.name,
+        "history": [(h.mode.name, h.keyframe_id, bool(h.loop_closed), float(h.score),
+                     float(h.overlap)) for h in backend.history],
+        "solver_runs": runs, "solves": backend.solve_log,
+        "ate_map_m": ate_map, "ate_odom_m": ate_odom, "dropped": ab.dropped,
+        "corrected_frames": int(corrected.size),
+        "first_corrected_frame": int(corrected[0]) if corrected.size else None,
+        "correction_max_m": float(shift.max()) if shift.size else None,
+        "odom_poses": odom.tolist(), "map_poses": est.tolist(),
+        "num_matches": [r.num_matches for r in results],
+        "converged": [r.converged for r in results],
+        "coalesced": ab.coalesced, "backlog_peak": int(max(backlog)), "backlog": backlog,
+        "carved_points": carved["points"], "carved_rows": len(rows),
+        "grid_occupied": n_occ, "grid_free": n_free,
+        "grid_bytes": int(grid.numel() * grid.element_size()),
+        "mirror_bytes": mirror_nbytes(db), "mirror_rows": int(db._mirror["cap"]),
+        "payload_bytes": int(sum(os.path.getsize(os.path.join(payload, n)) for n in
+                                 os.listdir(payload))),
+        "peak_device_bytes": int(peak), "stage_ms": stats,
+        "knn_launches": launches["knn"], "knn_merge_launches": launches["knn_merge"],
+        "knn_launches_per_frame": CITY_KNN_PER_FRAME,
+        "knn_launches_per_backend_keyframe":
+            (launches["knn"] - CITY_KNN_PER_FRAME * CITY_FRAMES) / max(n_kf_frames, 1),
+    }
+    log("city", f"{CITY_FRAMES} frames in {wall:.1f} s ({n_kf_frames} through the gate; final flush "
+        f"{flush_ms:.0f} ms): {db.n_keyframes} keyframes and {db.n_edges} edges stored, loops "
+        f"closed {len(loops)} (edges {out['loop_edges']}), modes seen {out['modes']}, final "
+        f"{backend.mode.name}; solver runs {runs}")
+    log("city", f"ATE map frame {ate_map:.4f} m, odometry alone {ate_odom:.4f} m (limit "
+        f"{CITY_ATE_LIMIT}); {corrected.size} frames came out more than {CITY_CORRECTION_M} m from "
+        f"their odometry pose, the first at frame {out['first_corrected_frame']}, the most "
+        f"{out['correction_max_m']:.3f} m; dropped {ab.dropped}, coalesced {ab.coalesced}, peak backlog "
+        f"{out['backlog_peak']}; carved {carved['points']} points in {len(rows)} keyframes, mirror "
+        f"masks equal to the host's; grid {n_occ} occupied and {n_free} free cells, "
+        f"{out['grid_bytes'] / 2**20:.2f} MiB")
+    log("city", f"ms/frame median {out['frame_ms_median']:.2f}, p90 {out['frame_ms_p90']:.2f}, max "
+        f"{out['frame_ms_max_after_first']:.1f} (the first frame, which also initialises the "
+        f"libraries, {out['frame_ms_first']:.1f}); frames without a keyframe median "
+        f"{out['frame_ms_median_no_kf']:.2f}; keyframe frames median "
+        f"{out['frame_ms_median_kf']:.2f}, max {out['frame_ms_max_kf']:.1f}")
+    log("city", "stage ms on the worker (n, mean, median, max): " + stage_line(stats))
+    log("city", "GN iterations a solve: " + ", ".join(
+        f"{s_['kind']}@{s_['keyframes']}:{s_['iterations']}" for s_ in backend.solve_log))
+    log("city", f"knn launches {launches['knn']} (+{launches['knn_merge']} merges): "
+        f"{CITY_KNN_PER_FRAME} a frame and {out['knn_launches_per_backend_keyframe']:.1f} more a "
+        f"keyframe frame; mirror {out['mirror_bytes'] / 2**20:.2f} MiB in {out['mirror_rows']} "
+        f"rows; payload on disk {out['payload_bytes'] / 2**20:.2f} MiB; peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    check(len(results) == CITY_FRAMES and finite, "non-finite pose on the city course")
+    check(np.isfinite(db.map_poses[:db.n_keyframes]).all(), "non-finite keyframe pose")
+    check(len(loops) >= 1, "no loop closed on the city course at the 0.05 gates")
+    check(runs["windowed"] >= 1, f"no windowed solve ran: {runs}")
+    check(any(h.mode is WorkMode.LOCALIZATION for h in backend.history), "LOCALIZATION never reached")
+    check(ab.dropped == 0, f"{ab.dropped} keyframes dropped")
+    check(carved["points"] > 0, "no stored point was carved")
+    check(bool((m["emk"][rows].cpu().numpy() == db.edge_mask[rows]).all())
+          and bool((m["smk"][rows].cpu().numpy() == db.surf_mask[rows]).all()),
+          "a carved row's mirror masks differ from the host's")
+    check(n_occ > 0 and n_free > 0, f"occupancy grid: {n_occ} occupied and {n_free} free cells")
+    check(float(grid.min()) >= oc.l_min and float(grid.max()) <= oc.l_max and bool(
+        torch.isfinite(grid).all()), "occupancy grid outside its clip")
+    check(ate_map < CITY_ATE_LIMIT, f"city map-frame ATE {ate_map:.4f} m ≥ {CITY_ATE_LIMIT} m")
+    # the frame whose keyframe closed the first loop, from its stamp (0.1 s a frame)
+    first_loop = int(round(float(db.stamps[loops[0].keyframe_id]) / 0.1))
+    check(corrected.size > 0 and corrected[-1] > first_loop,
+          "no frame after the loop closure came out with a corrected map pose: the worker's "
+          "correction never reached a FrameResult")
+    check(ate_map < ate_odom, f"city map-frame ATE {ate_map:.4f} m is no better than odometry's "
+          f"{ate_odom:.4f} m")
+    out["repeat"] = repeat_check(kept, odom[:CITY_REPEAT_FRAMES])
+    for name in ("knn", "knn_merge"):
+        check(launches.get(name, 0) > CITY_KNN_PER_FRAME * CITY_FRAMES,
+              f"{name}: {launches.get(name, 0)} launches on the city path, the frames alone make "
+              f"{CITY_KNN_PER_FRAME * CITY_FRAMES}")
+    return out, {"system": system}
+
+
+def file_digests(paths):
+    out = {}
+    for p in paths:
+        with open(p, "rb") as fh:
+            out[p] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def phase_persist(course, holder):
+    """Save the city run, drop it, boot a new system from the files.
+    ``holder["system"]`` is the city run's system, taken out here so that
+    nothing keeps it alive."""
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.backend import KeyframeDatabase, WorkMode
+    from lmsf_slam_tpu_torch.backend.keyframe_db import _DISK_FIELDS
+    from lmsf_slam_tpu_torch.interop import (
+        KEYFRAME_DB_EDGE_FIELDS, KEYFRAME_DB_FIELDS, keyframe_db_from_numpy)
+    from lmsf_slam_tpu_torch.mapping import occupancy_from_database
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    system = holder.pop("system")
+    path = os.path.join(TMP, "city_db.npz")
+    db = system.backend.db
+    n_kf, n_edges = db.n_keyframes, db.n_edges
+    t0 = time.perf_counter()
+    system.save(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    payload = db.storage_dir
+    files = [path] + [os.path.join(payload, name + ".dat") for name in _DISK_FIELDS]
+    before = file_digests(files)
+
+    # a RAM-mode save → load round trip of the same database
+    fields = {k: np.array(getattr(db, k)[:n_kf]) for k in KEYFRAME_DB_FIELDS}
+    fields.update({k: getattr(db, k)[:n_edges] for k in KEYFRAME_DB_EDGE_FIELDS})
+    fields.update(n_keyframes=n_kf, n_edges=n_edges)
+    ram_path = os.path.join(TMP, "city_db_ram.npz")
+    t0 = time.perf_counter()
+    keyframe_db_from_numpy(fields, device="cuda").save(ram_path)
+    ram_save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ram = KeyframeDatabase.load(ram_path, device="cuda")
+    ram_load_ms = (time.perf_counter() - t0) * 1e3
+    check(ram.storage_dir is None and (ram.n_keyframes, ram.n_edges) == (n_kf, n_edges),
+          "RAM round trip: counts differ")
+    for k in KEYFRAME_DB_FIELDS:
+        check(np.array_equal(getattr(ram, k)[:n_kf], fields[k]), f"RAM round trip: {k} differs")
+    for k in KEYFRAME_DB_EDGE_FIELDS:
+        check(np.array_equal(getattr(ram, k)[:n_edges], fields[k]), f"RAM round trip: {k} differs")
+    del ram, fields
+
+    system._async.close()
+    del system, db
+    cfg = city_config(extras=False)
+    cfg = cfg._replace(lifelong=cfg.lifelong._replace(occupancy=city_config().lifelong.occupancy))
+    t0 = time.perf_counter()
+    booted = MultiLidarSystem.load(path, cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    backend = booted.backend
+    check(backend.db.device.type == "cuda", f"the loaded database is on {backend.db.device}")
+    check(backend.mode is WorkMode.RELOCALIZATION, "a loaded system must boot in RELOCALIZATION")
+    check(backend.db.n_keyframes == n_kf and backend.db.n_edges == n_edges, "loaded counts differ")
+    check(os.path.abspath(backend.db.storage_dir) != os.path.abspath(payload),
+          "the session writes into the checkpoint's payload")
+    grid = booted.occupancy_grid()
+    check(grid is not None and int((grid > 0).sum()) > 0 and int((grid < 0).sum()) > 0,
+          "the booted grid was not rebuilt from the database")
+    t0 = time.perf_counter()
+    rebuilt = occupancy_from_database(backend.db, cfg.lifelong.occupancy)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.equal(grid, rebuilt)), "the booted grid is not occupancy_from_database's")
+
+    frames = range(CITY_REBOOT_START, CITY_REBOOT_START + CITY_REBOOT_FRAMES)
+    _build.reset_launches()
+    results, times, _ = drive_city(booted, course, frames, movers=False, stamp0=1000.0)
+    booted.flush()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("knn", "knn_merge"):
+        check(launches.get(name, 0) > 0, f"{name} was not launched on the reboot path")
+    localized = [k for k, r in enumerate(results) if r.mode is not WorkMode.RELOCALIZATION]
+    check(bool(localized), "the system booted from disk never relocalized")
+    kf_before = sum(r.is_keyframe for r in results[:localized[0] + 1])
+    check(kf_before <= REBOOT_KEYFRAMES,
+          f"relocalized only after {kf_before} keyframes (limit {REBOOT_KEYFRAMES})")
+    gt = course.gt_in_first_map_frame(frames)
+    est = np.stack([r.map_pose for r in results])
+    check(np.isfinite(est).all(), "non-finite pose after the reboot from disk")
+    err = np.linalg.norm(est[localized[0]:, 4:] - gt[localized[0]:, 4:], axis=1)
+    check(float(err.max()) < REBOOT_LIMIT,
+          f"after relocalizing, the map position lies {err.max():.3f} m from the ground truth in "
+          f"the first session's map frame (limit {REBOOT_LIMIT})")
+    for name in _DISK_FIELDS:  # the session's own copy, flushed
+        getattr(backend.db, name).flush()
+    check(file_digests(files) == before, "the reboot session changed the checkpoint's files")
+    stats = backend.timer.stats()
+    out = {
+        "save_ms": save_ms, "load_ms": load_ms, "npz_bytes": os.path.getsize(path),
+        "payload_bytes": int(sum(os.path.getsize(p) for p in files[1:])),
+        "ram_npz_bytes": os.path.getsize(ram_path), "ram_save_ms": ram_save_ms,
+        "ram_load_ms": ram_load_ms, "grid_rebuild_ms": rebuild_ms, "keyframes": int(n_kf),
+        "start_frame": CITY_REBOOT_START, "frames": len(results),
+        "relocalized_at_frame": CITY_REBOOT_START + localized[0],
+        "keyframes_until_relocalized": int(kf_before),
+        "map_err_rmse_m": float(np.sqrt(np.mean(err ** 2))), "map_err_max_m": float(err.max()),
+        "final_mode": results[-1].mode.name, "history": [
+            (h.mode.name, h.keyframe_id, float(h.score), float(h.overlap)) for h in backend.history],
+        "coalesced": booted._async.coalesced, "dropped": booted._async.dropped,
+        **frame_stats(times, [r.is_keyframe for r in results]), "stage_ms": stats,
+        "knn_launches": launches["knn"], "knn_merge_launches": launches["knn_merge"],
+    }
+    booted._async.close()
+    log("persist", f"save of {n_kf} keyframes (memmap payload {out['payload_bytes'] / 2**20:.2f} "
+        f"MiB flushed, npz {out['npz_bytes']} bytes) {save_ms:.1f} ms; load onto the card (payload "
+        f"copied into a session directory, grid rebuilt) {load_ms:.1f} ms, of which the grid "
+        f"rebuild from {n_kf} keyframes {rebuild_ms:.1f} ms; RAM mode: npz "
+        f"{out['ram_npz_bytes']} bytes, save {ram_save_ms:.1f} ms, load {ram_load_ms:.1f} ms, "
+        "arrays equal")
+    log("persist", f"booted in RELOCALIZATION; fed frames {CITY_REBOOT_START}.."
+        f"{CITY_REBOOT_START + len(results) - 1} without cars: relocalized at frame "
+        f"{out['relocalized_at_frame']} after {kf_before} keyframe(s); map position vs ground "
+        f"truth in the first session's map frame rmse {out['map_err_rmse_m']:.3f} m, max "
+        f"{out['map_err_max_m']:.3f} m (limit {REBOOT_LIMIT}); final mode {out['final_mode']}; "
+        f"coalesced {out['coalesced']}; ms/frame median {out['frame_ms_median']:.2f}, max "
+        f"{out['frame_ms_max']:.1f}; the checkpoint's {len(files)} files are unchanged")
+    log("persist", "stage ms on the worker (n, mean, median, max): " + stage_line(stats))
+    return out, path
+
+
+def phase_merge(course, path):
+    """A second session over a stretch the first one drove, aligned to the
+    first session's checkpoint by appearance and merged into it."""
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.backend import (
+        KeyframeDatabase, LifelongBackend, align_sessions, merge_sessions)
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    cfg = city_config(extras=False)
+    session_b = MultiLidarSystem(cfg, device="cuda")
+    frames = range(MERGE_START, MERGE_START + MERGE_FRAMES)
+    _, times, _ = drive_city(session_b, course, frames, movers=False, stamp0=2000.0)
+    session_b.flush()
+    session_b._async.close()
+    db_b = session_b.backend.db
+    db_a = KeyframeDatabase.load(path, storage_dir=os.path.join(TMP, "merge_session"),
+                                 device="cuda")
+    n_a, e_a, n_b, e_b = db_a.n_keyframes, db_a.n_edges, db_b.n_keyframes, db_b.n_edges
+    check(n_b >= 20, f"the second session stored only {n_b} keyframes")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = align_sessions(db_a, db_b, cfg.loop)
+    align_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    check(res is not None, "no alignment between the sessions")
+    check(len(res.matches) >= 3, f"only {len(res.matches)} consistent matches")
+    # session B's map frame starts at the course pose MERGE_START
+    truth = se3np.pose_between(course.traj[0], course.traj[MERGE_START])
+    d = se3np.pose_between(truth, res.transform)
+    err_m = float(np.linalg.norm(se3np.pose_trans(d)))
+    err_deg = float(np.degrees(np.linalg.norm(se3np.so3_log(se3np.pose_quat(d)))))
+    check(err_m < MERGE_LIMIT_M and err_deg < MERGE_LIMIT_DEG,
+          f"the recovered transform is {err_m:.3f} m / {err_deg:.3f}° from the truth (limits "
+          f"{MERGE_LIMIT_M} m / {MERGE_LIMIT_DEG}°)")
+    t0 = time.perf_counter()
+    offset = merge_sessions(db_a, db_b, res)
+    merge_s = time.perf_counter() - t0
+    check(offset == n_a and db_a.n_keyframes == n_a + n_b, "keyframe counts do not add up")
+    check(db_a.n_edges == e_a + e_b + len(res.matches), "edge counts do not add up")
+    inter = slice(e_a + e_b, db_a.n_edges)
+    check(bool(db_a.eloop[inter].all()) and bool((db_a.eij[inter, 0] < n_a).all())
+          and bool((db_a.eij[inter, 1] >= n_a).all()),
+          "inter-session edges are not loop edges from the first session to the second")
+    merged = LifelongBackend(db=db_a, config=cfg.lifelong, loop_config=cfg.loop)
+    t0 = time.perf_counter()
+    stats = merged.force_global_optimize()
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    poses = db_a.map_poses[:db_a.n_keyframes]
+    check(stats is not None and np.isfinite(poses).all(), "the merged solve is not finite")
+    gt_b = course.gt_in_first_map_frame(
+        [int(round((db_b.stamps[i] - 2000.0) / 0.1)) for i in range(n_b)])
+    err_b = np.linalg.norm(poses[n_a:, 4:] - gt_b[:, 4:], axis=1)
+    solve = merged.solve_log[-1]
+    out = {"session_b_keyframes": int(n_b), "session_b_edges": int(e_b),
+           "session_b_frame_ms_median": float(np.median(np.asarray(times) * 1e3)),
+           "queries": res.n_tried, "matches": [(int(a), int(b)) for a, b, _ in res.matches],
+           "align_s": align_s, "merge_s": merge_s, "transform": res.transform.tolist(),
+           "transform_err_m": err_m, "transform_err_deg": err_deg,
+           "merged_keyframes": int(db_a.n_keyframes), "merged_edges": int(db_a.n_edges),
+           "solve_ms": solve_ms, "solve": solve,
+           "merged_b_err_rmse_m": float(np.sqrt(np.mean(err_b ** 2))),
+           "merged_b_err_max_m": float(err_b.max()),
+           "knn_launches": launches.get("knn", 0), "knn_merge_launches": launches.get("knn_merge", 0)}
+    log("merge", f"second session: frames {MERGE_START}..{MERGE_START + MERGE_FRAMES - 1}, {n_b} "
+        f"keyframes; align_sessions {res.n_tried} queries in {align_s:.1f} s → "
+        f"{len(res.matches)} consistent matches, transform {err_m:.3f} m / {err_deg:.3f}° from "
+        f"the truth (limits {MERGE_LIMIT_M} m / {MERGE_LIMIT_DEG}°); merged graph "
+        f"{db_a.n_keyframes} keyframes ({n_a} + {n_b}) and {db_a.n_edges} edges ({e_a} + {e_b} + "
+        f"{len(res.matches)} inter-session loop edges) in {merge_s:.2f} s; full solve "
+        f"{solve_ms:.0f} ms, {solve['iterations']} GN iterations, chi2 "
+        f"{solve['chi2_initial']:.4g} → {solve['chi2_final']:.4g}; the second session's keyframes "
+        f"then lie rmse {out['merged_b_err_rmse_m']:.3f} m, max {out['merged_b_err_max_m']:.3f} m "
+        "from the ground truth in the first session's map frame")
+    return out
+
+
+
 def ptxas_summary(lines):
     """One line of the compiler's per-kernel resource report: the most
     registers a thread, the most static shared memory, the spills."""
@@ -821,6 +1527,20 @@ def ptxas_summary(lines):
     return (f"{len(regs)} kernel instances, at most {max(regs)} registers a thread and "
             f"{max(smem, default=0)} bytes of static shared memory; spill stores: "
             f"{sum(spills)} bytes")
+
+
+def city_phases():
+    """Phases city, persist and merge, with their temporary files."""
+    shutil.rmtree(TMP, ignore_errors=True)
+    os.makedirs(TMP)
+    try:
+        course = CityCourse()
+        city, holder = phase_city(course)
+        persist, checkpoint = phase_persist(course, holder)
+        sessions = phase_merge(course, checkpoint)
+    finally:
+        shutil.rmtree(TMP, ignore_errors=True)
+    return city, persist, sessions
 
 
 def main(argv=None):
@@ -850,6 +1570,10 @@ def main(argv=None):
     loop_traj, loop_scans = make_loop_course()
     be, first_run = phase_backend(loop_traj, loop_scans)
     reboot = phase_reboot(loop_traj, loop_scans, first_run)
+    del first_run
+    asyn = phase_async(loop_traj, loop_scans, be)
+    del loop_scans
+    city, persist, sessions = city_phases()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -868,9 +1592,14 @@ def main(argv=None):
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": be["knn_launches"],
+        "launches": city["knn_launches"],
+        "launches_city": city["knn_launches"],
+        "launches_looped_course": be["knn_launches"],
         "launches_front_end_slice": sl["knn_launches"],
         "launches_reboot": reboot["knn_launches"],
+        "launches_async": asyn["knn_launches"],
+        "launches_reboot_from_disk": persist["knn_launches"],
+        "launches_align_sessions": sessions["knn_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": surf["ms"], "plain_ms": surf["plain_ms"], "bound_ms": surf["bound_ms"],
         "bound_by": surf["bound_by"], "library_ms": surf["library_ms"],
@@ -882,14 +1611,21 @@ def main(argv=None):
         "nn1_1920x24576": {k: nn1[k] for k in timed_keys},
         **{name.split()[2]: {k: kernel[name][k] for k in timed_keys}
            for name, _, _ in BACKEND_SHAPES},
+        **{"city_" + name.split()[-2] + "_" + name.split()[-1].replace("=", ""):
+           {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in CITY_SHAPES},
     }, {
         "name": "knn_merge",
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": be["knn_merge_launches"],
+        "launches": city["knn_merge_launches"],
+        "launches_city": city["knn_merge_launches"],
+        "launches_looped_course": be["knn_merge_launches"],
         "launches_front_end_slice": sl["knn_merge_launches"],
         "launches_reboot": reboot["knn_merge_launches"],
+        "launches_async": asyn["knn_merge_launches"],
+        "launches_reboot_from_disk": persist["knn_merge_launches"],
+        "launches_align_sessions": sessions["knn_merge_launches"],
         "max_abs_err": merge["max_abs_err"],
         "ms": merge["ms"], "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
         "bound_by": merge["bound_by"], "library_ms": merge["library_ms"],
@@ -899,9 +1635,11 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "build": info, "kernel": kernel, "slice": sl,
-                       "profile": prof, "backend": be, "reboot": reboot,
+                       "profile": prof, "backend": be, "reboot": reboot, "async": asyn,
+                       "city": city, "persist": persist, "merge": sessions,
                        "seconds": time.perf_counter() - t_start},
                       fh, indent=1)
+    log("done", f"all phases in {time.perf_counter() - t_start:.0f} s")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

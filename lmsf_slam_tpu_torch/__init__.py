@@ -5,11 +5,12 @@ repository unchanged) to PyTorch on an NVIDIA Hopper card. Module layout and
 names mirror the reference so each counterpart is easy to find:
 ``common`` (SE(3) algebra, point batches), ``ops`` (preprocess, voxel,
 features, neighbour search, registration and alignment evaluation, scan
-context), ``tracker``, ``backend`` (keyframe database with its device mirror,
-pose graph, loop closure, the lifelong mode machine), ``system``
-(``MultiLidarSystem``, the fused per-frame step, the keyframe gate, the YAML
-config loader), ``datasets`` (ray-cast simulator), ``evaluation`` (ATE) and
-``utils`` (stage timers).
+context, dynamic-object carving), ``tracker``, ``backend`` (keyframe database
+with its device mirror and its checkpoints, pose graph, loop closure, the
+lifelong mode machine, the worker-thread facade, session merge), ``mapping``
+(occupancy grid), ``system`` (``MultiLidarSystem``, the fused per-frame step,
+the keyframe gate, the YAML config loader), ``datasets`` (ray-cast simulator,
+city course), ``evaluation`` (ATE) and ``utils`` (stage timers).
 
 The public entry point::
 

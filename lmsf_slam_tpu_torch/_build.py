@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,15 +33,20 @@ launches: dict[str, int] = {}
 # per kernel: {"seconds": build time, "ptxas": compiler resource summary}
 build_info: dict[str, dict] = {}
 _libs: dict[str, ctypes.CDLL] = {}
+# guards the build, the handle cache and the launch counts: the frontend and
+# the backend's worker thread may both reach a kernel's first launch at once
+lock = threading.RLock()
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def count_launch(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
+    with lock:
+        launches[name] = launches.get(name, 0) + 1
 
 
 def _nvcc() -> str:
@@ -89,18 +95,22 @@ def _finish_build(name: str, job) -> None:
 
 def build(names) -> None:
     """Build the named kernels, one nvcc per source, all started together."""
-    jobs = {n: _start_build(n) for n in names}
-    for name, job in jobs.items():
-        if job is not None:
-            _finish_build(name, job)
+    with lock:
+        jobs = {n: _start_build(n) for n in names}
+        for name, job in jobs.items():
+            if job is not None:
+                _finish_build(name, job)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, building it first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _libs[name] = lib
-        launches.setdefault(name, 0)
+        with lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                launches.setdefault(name, 0)
+                _libs[name] = lib
     return lib

@@ -23,3 +23,7 @@ __all__ = [
     "LifelongConfig",
     "WorkMode",
 ]
+from .async_backend import AsyncBackend
+from .session_merge import SessionAlignment, align_sessions, merge_sessions
+
+__all__ += ["AsyncBackend", "SessionAlignment", "align_sessions", "merge_sessions"]

@@ -1,12 +1,15 @@
-"""Keyframe / pose-graph database with a device-resident search mirror.
+"""Persistent keyframe / pose-graph database with a device-resident search
+mirror.
 
-Counterpart of ``lmsf_slam_tpu/backend/keyframe_db.py`` without persistence:
-vertices + between-edges, per-keyframe feature clouds, optimized positions
-and scan-context descriptors. The store is array-of-structs numpy on the
-host, growing by doubling; everything searchable (positions, descriptors,
-ring keys) and the clouds themselves are mirrored on ``device``, so loop and
-relocalization candidate search and the local-map assembly run on the card
-with no per-query upload.
+Counterpart of ``lmsf_slam_tpu/backend/keyframe_db.py``: vertices +
+between-edges, per-keyframe feature clouds, optimized positions and
+scan-context descriptors. The store is array-of-structs numpy on the host
+(one ``.npz`` checkpoint = the lifelong database), growing by doubling; with
+a ``storage_dir`` the bulky per-keyframe payloads are disk-backed memmaps
+instead. Everything searchable (positions, descriptors, ring keys) and the
+clouds themselves are mirrored on ``device``, so loop and relocalization
+candidate search and the local-map assembly run on the card with no
+per-query upload.
 
 Keyframe clouds are stored in the **sensor frame** with their odometry and
 optimized (map-frame) poses; local maps are assembled with the *current*
@@ -19,13 +22,17 @@ its capacity grows (powers of two from ``mirror_min_cap``), else the new
 keyframes' rows, the poses after an optimize, and the masks of carved rows.
 Rows are written in place (``mirror[i] = row``); the reference's
 ``dynamic_update_slice`` clamps an out-of-range start where a torch slice
-raises, so the append asserts its row lies below the capacity.
+raises, so the append asserts its row lies below the capacity. Rows of a
+memmap are copied into RAM before they go to the device, never handed over
+as views of the map.
 
-``save``, ``load`` and a ``storage_dir`` (disk-backed payloads) are not
-ported yet and raise ``NotImplementedError``.
+A checkpoint (:meth:`KeyframeDatabase.save`) has the reference's keys, dtypes
+and ``version=2``, so either package loads what the other wrote.
 """
 from __future__ import annotations
 
+import os
+import shutil
 from typing import NamedTuple
 
 import numpy as np
@@ -35,10 +42,9 @@ from ..common import se3
 from ..common.pointcloud import PointBatch
 from ..ops import scancontext
 
-_NO_PERSISTENCE = (
-    "the port's KeyframeDatabase has no persistence yet (save/load and "
-    "disk-backed storage_dir: ROADMAP.md section 1, item 10)"
-)
+# bulky per-keyframe payloads live on disk when a storage_dir is given;
+# poses / edges / ring keys stay in RAM as the searchable store
+_DISK_FIELDS = ("edge_xyz", "edge_mask", "surf_xyz", "surf_mask", "sc")
 
 
 class GraphArrays(NamedTuple):
@@ -128,27 +134,31 @@ class KeyframeDatabase:
         mirror_min_cap: int = 512,
         device="cuda",
     ):
-        """``mirror_min_cap``: floor of the device mirror's row capacity; the
+        """``storage_dir``: if given, bulky per-keyframe payloads (feature
+        clouds, descriptors) are disk-backed memmaps under this directory:
+        RAM stays bounded for lifelong sessions and checkpointing is
+        incremental (memmap flush + a small npz of the graph).
+        ``mirror_min_cap``: floor of the device mirror's row capacity; the
         mirror is re-uploaded whole only when the database outgrows it.
         ``device``: where the mirror lives and the descriptors are computed."""
-        if storage_dir is not None:
-            raise NotImplementedError(_NO_PERSISTENCE)
         self.edge_capacity = edge_capacity
         self.surf_capacity = surf_capacity
         self.sc_shape = (sc_rings, sc_sectors)
-        self.storage_dir = None
+        self.storage_dir = storage_dir
         self.mirror_min_cap = mirror_min_cap
         self.device = torch.device(device)
+        if storage_dir is not None:
+            os.makedirs(storage_dir, exist_ok=True)
         n = initial_keyframes
         self.n_keyframes = 0
         self.stamps = np.zeros(n, np.float64)
         self.odom_poses = np.zeros((n, 7), np.float32)
         self.map_poses = np.zeros((n, 7), np.float32)
-        self.edge_xyz = np.zeros((n, edge_capacity, 3), np.float32)
-        self.edge_mask = np.zeros((n, edge_capacity), bool)
-        self.surf_xyz = np.zeros((n, surf_capacity, 3), np.float32)
-        self.surf_mask = np.zeros((n, surf_capacity), bool)
-        self.sc = np.zeros((n,) + self.sc_shape, np.float32)
+        self.edge_xyz = self._alloc("edge_xyz", (n, edge_capacity, 3), np.float32)
+        self.edge_mask = self._alloc("edge_mask", (n, edge_capacity), bool)
+        self.surf_xyz = self._alloc("surf_xyz", (n, surf_capacity, 3), np.float32)
+        self.surf_mask = self._alloc("surf_mask", (n, surf_capacity), bool)
+        self.sc = self._alloc("sc", (n,) + self.sc_shape, np.float32)
         self.ring_keys = np.zeros((n, sc_rings), np.float32)
         # optional per-keyframe GNSS observation (map/ENU frame)
         self.gnss_pos = np.zeros((n, 3), np.float32)
@@ -168,6 +178,28 @@ class KeyframeDatabase:
         # their mirror rows are re-uploaded lazily (carving is rare)
         self._dirty_rows: set[int] = set()
 
+    def _alloc(self, name: str, shape, dtype):
+        if self.storage_dir is None or name not in _DISK_FIELDS:
+            return np.zeros(shape, dtype)
+        path = os.path.join(self.storage_dir, name + ".dat")
+        return np.memmap(path, dtype=dtype, mode="w+", shape=shape)
+
+    def _grow_field(self, name: str, new_cap: int):
+        arr = getattr(self, name)
+        if isinstance(arr, np.memmap):
+            # appending rows to a row-major memmap = extending the file
+            path = arr.filename
+            dtype = arr.dtype
+            shape = (new_cap,) + arr.shape[1:]
+            arr.flush()
+            del arr
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            with open(path, "r+b") as f:
+                f.truncate(nbytes)
+            setattr(self, name, np.memmap(path, dtype=dtype, mode="r+", shape=shape))
+        else:
+            setattr(self, name, _grow(arr, new_cap))
+
     # -- insertion ----------------------------------------------------------
 
     def _ensure_kf_capacity(self, need: int):
@@ -179,7 +211,7 @@ class KeyframeDatabase:
             "stamps", "odom_poses", "map_poses", "edge_xyz", "edge_mask", "surf_xyz",
             "surf_mask", "sc", "ring_keys", "gnss_pos", "gnss_valid",
         ):
-            setattr(self, name, _grow(getattr(self, name), new))
+            self._grow_field(name, new)
 
     def _ensure_edge_capacity(self, need: int):
         cap = self.eij.shape[0]
@@ -263,7 +295,10 @@ class KeyframeDatabase:
     # -- queries ------------------------------------------------------------
 
     def _to_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        # rows of a memmap are copied into RAM first: the tensor (on the CPU
+        # it would share memory) must not be a view of the mapped file
+        a = np.array(a) if isinstance(a, np.memmap) else np.ascontiguousarray(a)
+        return torch.as_tensor(a, device=self.device)
 
     def keyframe_clouds(self, i: int) -> tuple[PointBatch, PointBatch]:
         return (
@@ -473,11 +508,137 @@ class KeyframeDatabase:
         keep = np.isfinite(d)
         return ids[keep], d[keep]
 
-    # -- persistence ------------------------------------------------------------
+    # -- persistence (the lifelong checkpoint) -------------------------------
+
+    def _field_spec(self, name):
+        ec, sc_ = self.edge_capacity, self.surf_capacity
+        return {
+            "edge_xyz": ((ec, 3), np.float32),
+            "edge_mask": ((ec,), np.bool_),
+            "surf_xyz": ((sc_, 3), np.float32),
+            "surf_mask": ((sc_,), np.bool_),
+            "sc": (self.sc_shape, np.float32),
+        }[name]
 
     def save(self, path: str):
-        raise NotImplementedError(_NO_PERSISTENCE)
+        """Checkpoint of the whole lifelong database, in the reference's
+        format (same keys, dtypes, ``version=2``).
+
+        RAM mode: one self-contained npz. Disk mode (``storage_dir``):
+        INCREMENTAL: memmaps are flushed in place and the npz carries only
+        the small graph arrays, so checkpoint cost is independent of the
+        number of stored clouds."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        n, e = self.n_keyframes, self.n_edges
+        small = dict(
+            version=2,
+            stamps=self.stamps[:n],
+            odom_poses=self.odom_poses[:n],
+            map_poses=self.map_poses[:n],
+            ring_keys=self.ring_keys[:n],
+            eij=self.eij[:e],
+            ez=self.ez[:e],
+            esqrtw=self.esqrtw[:e],
+            eloop=self.eloop[:e],
+            gnss_pos=self.gnss_pos[:n],
+            gnss_valid=self.gnss_valid[:n],
+            edge_capacity=self.edge_capacity,
+            surf_capacity=self.surf_capacity,
+            sc_shape=np.asarray(self.sc_shape),
+        )
+        if self.storage_dir is not None:
+            for name in _DISK_FIELDS:
+                getattr(self, name).flush()
+            np.savez_compressed(
+                path,
+                storage="memmap",
+                payload_dir=os.path.abspath(self.storage_dir),
+                **small,
+            )
+        else:
+            np.savez_compressed(
+                path,
+                storage="ram",
+                edge_xyz=self.edge_xyz[:n],
+                edge_mask=self.edge_mask[:n],
+                surf_xyz=self.surf_xyz[:n],
+                surf_mask=self.surf_mask[:n],
+                sc=self.sc[:n],
+                **small,
+            )
 
     @classmethod
-    def load(cls, path: str, storage_dir: str | None = None) -> "KeyframeDatabase":
-        raise NotImplementedError(_NO_PERSISTENCE)
+    def load(cls, path: str, storage_dir: str | None = None,
+             device="cuda") -> "KeyframeDatabase":
+        """Boot a database from a checkpoint, its mirror on ``device``.
+
+        Disk-backed (memmap) checkpoints: the payload ``.dat`` files are
+        located via the checkpoint's recorded ``payload_dir`` (fallback: the
+        checkpoint's own directory) and COPIED into the new session's
+        ``storage_dir`` (default: ``<path minus extension>_session``), so a
+        saved checkpoint stays immutable: a crash mid-session can never
+        corrupt the only copy. Pass ``storage_dir`` equal to the payload
+        directory to explicitly resume in place.
+        """
+        z = np.load(path)
+        storage = str(z["storage"]) if "storage" in z else "ram"
+        n = z["stamps"].shape[0]
+        e = z["eij"].shape[0]
+        if storage == "memmap":
+            source_dir = str(z["payload_dir"]) if "payload_dir" in z else ""
+            if not source_dir or not os.path.isdir(source_dir):
+                source_dir = os.path.dirname(os.path.abspath(path))
+            if storage_dir is None:
+                storage_dir = os.path.splitext(os.path.abspath(path))[0] + "_session"
+            sc_shape = tuple(int(x) for x in z["sc_shape"])
+            db = cls(
+                edge_capacity=int(z["edge_capacity"]),
+                surf_capacity=int(z["surf_capacity"]),
+                initial_keyframes=max(n, 1),
+                sc_rings=sc_shape[0],
+                sc_sectors=sc_shape[1],
+                device=device,
+            )
+            in_place = os.path.abspath(storage_dir) == os.path.abspath(source_dir)
+            if not in_place:
+                os.makedirs(storage_dir, exist_ok=True)
+            db.storage_dir = storage_dir
+            for name in _DISK_FIELDS:
+                row_shape, dtype = db._field_spec(name)
+                src = os.path.join(source_dir, name + ".dat")
+                row_bytes = int(np.prod(row_shape)) * np.dtype(dtype).itemsize
+                cap = os.path.getsize(src) // row_bytes
+                if cap < n:
+                    raise ValueError(f"{src} holds {cap} rows < {n} keyframes")
+                fpath = os.path.join(storage_dir, name + ".dat")
+                if not in_place:
+                    shutil.copyfile(src, fpath)
+                setattr(
+                    db, name,
+                    np.memmap(fpath, dtype=dtype, mode="r+", shape=(cap,) + row_shape),
+                )
+        else:
+            db = cls(
+                edge_capacity=z["edge_xyz"].shape[1],
+                surf_capacity=z["surf_xyz"].shape[1],
+                initial_keyframes=max(n, 1),
+                sc_rings=z["sc"].shape[1],
+                sc_sectors=z["sc"].shape[2],
+                device=device,
+            )
+            for name in _DISK_FIELDS:
+                getattr(db, name)[:n] = z[name]
+        db.n_keyframes = n
+        for name in ("stamps", "odom_poses", "map_poses", "ring_keys"):
+            getattr(db, name)[:n] = z[name]
+        if "gnss_pos" in z:
+            db.gnss_pos[:n] = z["gnss_pos"]
+            db.gnss_valid[:n] = z["gnss_valid"]
+        db._ensure_edge_capacity(max(e, 1))
+        db.n_edges = e
+        db.eij[:e] = z["eij"]
+        db.ez[:e] = z["ez"]
+        db.esqrtw[:e] = z["esqrtw"]
+        if "eloop" in z:
+            db.eloop[:e] = z["eloop"]
+        return db

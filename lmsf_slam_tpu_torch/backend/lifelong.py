@@ -16,17 +16,20 @@ Counterpart of ``lmsf_slam_tpu/backend/lifelong.py``:
   on loop closure or every ``optimize_batch`` keyframes, write optimized
   poses back to the database, recompute ``odom→map``, and on a closed loop
   switch to LOCALIZATION (auto mapping→localization on revisit);
-- timestamp-disorder guard at ingest.
+- timestamp-disorder guard at ingest;
+- post-insertion hooks on every stored keyframe: the live 2D occupancy grid
+  (rebuilt from the database when a loop closure moves the poses) and
+  dynamic-object carving of the nearest stored keyframes with the new scan's
+  free space; the unsupported-point gate on the map-extension branch;
+- ``save`` / ``load``: a loaded database boots in RELOCALIZATION.
 
 The FSM itself is tiny host logic in numpy (:mod:`..common.se3np`); every
 arrow of it bottoms out in device work (registration, alignment evaluation,
 descriptor search, batch pose-graph GN) on the database's device.
 
-Not ported yet, each raising ``NotImplementedError`` where it would run: the
-live occupancy grid (``occupancy``), dynamic carving (``dynamic_carve_knn``)
-and the unsupported-point gate (``dynamic_gate_unsupported``) — ROADMAP.md
-section 1, item 11; the submap Schur solve (``schur_submaps`` on a graph of
-``schur_min_vertices`` or more) — item 15; ``save`` / ``load`` — item 10.
+Not ported yet, raising ``NotImplementedError`` where it would run: the
+submap Schur solve (``schur_submaps`` on a graph of ``schur_min_vertices`` or
+more) — ROADMAP.md section 1, item 15.
 """
 from __future__ import annotations
 
@@ -36,15 +39,20 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..common import se3np
+from ..common import se3, se3np
 from ..common.pointcloud import PointBatch
+from ..mapping.occupancy import (
+    OccupancyConfig,
+    keyframe_update,
+    occupancy_from_database,
+    occupancy_init,
+)
+from ..ops.dynamic import carve_dynamic, unsupported_mask
 from ..ops.registration import RegistrationParams, register_and_score
 from ..utils.profiling import StageTimer
 from .keyframe_db import KeyframeDatabase
 from .loop_closure import LoopConfig, LoopDetector
 from .pose_graph import PoseGraphParams, optimize_pose_graph
-
-_ITEM_11 = "is not ported yet (ROADMAP.md section 1, item 11)"
 
 
 class WorkMode(enum.Enum):
@@ -108,14 +116,16 @@ class LifelongConfig(NamedTuple):
     # pass the scan's range image.
     dynamic_carve_knn: int = 0
     dynamic_carve_margin: float = 0.3  # beam must overshoot by this (m)
-    # carving never touches points within this height of the ground
+    # carving never touches points within this height of the ground; the
+    # ground level is self-calibrated per scan as the 5th percentile of the
+    # scan's own map-frame heights
     dynamic_carve_ground_clearance: float = 0.5
     # gate unsupported scan points when inserting a keyframe in LOCALIZATION
     # map-update
     dynamic_gate_unsupported: bool = False
     # live 2D occupancy grid, updated on every stored keyframe, rebuilt from
     # the database on loop closure. None disables.
-    occupancy: Optional[NamedTuple] = None
+    occupancy: Optional[OccupancyConfig] = None
 
 
 class BackendOutput(NamedTuple):
@@ -150,8 +160,6 @@ class LifelongBackend:
     ):
         """``device`` places the database this constructor makes when ``db``
         is None; a given database brings its own."""
-        if config.occupancy is not None:
-            raise NotImplementedError(f"LifelongConfig.occupancy {_ITEM_11}")
         self.db = db if db is not None else KeyframeDatabase(device=device)
         self.config = config
         # per-stage wall-clock aggregation, shared with the loop detector,
@@ -162,6 +170,8 @@ class LifelongBackend:
         self.history: list[BackendOutput] = []
         # which solver ran how often
         self.solver_runs = {"full_schur": 0, "full_replicated": 0, "windowed": 0}
+        # every solve so far: kind, vertices, GN iterations, chi2 before/after
+        self.solve_log: list[dict] = []
         # boot semantics: empty DB → MAPPING; loaded DB → RELOCALIZATION
         if mode is None:
             mode = WorkMode.RELOCALIZATION if self.db.n_keyframes > 0 else WorkMode.MAPPING
@@ -169,6 +179,12 @@ class LifelongBackend:
         self.odom2map = np.asarray(se3np.pose_identity(), np.float32)
         self.last_stamp = -np.inf
         self._pending = 0  # keyframes appended since last optimize
+        self._occ = (
+            occupancy_init(config.occupancy, self.db.device) if config.occupancy else None
+        )
+        if self._occ is not None and self.db.n_keyframes > 0:
+            # booting from an existing database: synchronize the grid
+            self._occ = occupancy_from_database(self.db, config.occupancy)
 
     # -- helpers --------------------------------------------------------------
 
@@ -191,9 +207,66 @@ class LifelongBackend:
         return self.db.local_map_knn_device(position, self.config.localization_knn)
 
     def _on_keyframe_stored(self, kf_id: int, scan_grid=None):
-        """Post-insertion hooks (live occupancy update, dynamic carving)."""
-        if self.config.dynamic_carve_knn > 0 and scan_grid is not None:
-            raise NotImplementedError(f"dynamic carving (dynamic_carve_knn > 0) {_ITEM_11}")
+        """Post-insertion hooks: live occupancy update + dynamic carving."""
+        cfg = self.config
+        carving = cfg.dynamic_carve_knn > 0 and scan_grid is not None
+        if self._occ is None and not carving:
+            return
+        pose = self._tensor(self.db.map_poses[kf_id])
+        if self._occ is not None:
+            edge, surf = self.db.keyframe_clouds(kf_id)
+            self._occ = keyframe_update(
+                self._occ, pose, torch.cat([edge.xyz, surf.xyz]),
+                torch.cat([edge.mask, surf.mask]), cfg.occupancy,
+            )
+        if carving:
+            # carve the k nearest STORED keyframes with the new scan's
+            # free space (new structure is untouched: carving only fires
+            # where the beam measured a LONGER range than the stored point)
+            ids, _ = self.db.nearest_ids(
+                self.db.map_poses[kf_id, 4:], cfg.dynamic_carve_knn, max_id=kf_id,
+            )
+            # ONE copy of the range image to the host: its points, their
+            # map-frame heights and the mask; the limits are host numpy
+            flat = scan_grid.xyz.reshape(-1, 3).to(torch.float32)
+            gz_d = se3.pose_apply(pose, flat)[:, 2]
+            packed = torch.cat(
+                [flat.reshape(-1), gz_d, scan_grid.mask.reshape(-1).to(torch.float32)]
+            ).cpu().numpy()
+            n = flat.shape[0]
+            xyz, gz, gm = packed[: 3 * n].reshape(n, 3), packed[3 * n: 4 * n], packed[4 * n:] > 0
+            if not gm.any():
+                return
+            elev = np.arctan2(xyz[:, 2], np.maximum(np.linalg.norm(xyz[:, :2], axis=-1), 1e-6))
+            elev_min = float(elev[gm].min())
+            elev_max = float(elev[gm].max())
+            # self-calibrated ground level: 5th percentile of the scan's own
+            # map-frame heights + clearance
+            z_min = float(np.percentile(gz[gm], 5.0)) + cfg.dynamic_carve_ground_clearance
+            keeps = []
+            for j in ids:
+                j = int(j)
+                edge_j, surf_j = self.db.keyframe_clouds(j)
+                pose_j = self._tensor(self.db.map_poses[j])
+                both = PointBatch(
+                    se3.pose_apply(pose_j, torch.cat([edge_j.xyz, surf_j.xyz])),
+                    torch.cat([edge_j.mask, surf_j.mask]),
+                )
+                keeps.append(carve_dynamic(
+                    scan_grid, both, pose,
+                    elev_min=elev_min, elev_max=elev_max,
+                    margin=cfg.dynamic_carve_margin, z_min=z_min,
+                ))
+            if not keeps:
+                return
+            keeps = torch.stack(keeps).cpu().numpy()  # one copy for all k
+            ne = self.db.edge_capacity
+            for j, keep in zip(ids, keeps):
+                self.db.carve(int(j), keep[:ne], keep[ne:])
+
+    def occupancy_grid(self) -> Optional[torch.Tensor]:
+        """Current synchronized 2D log-odds grid (None if disabled)."""
+        return self._occ
 
     # -- FSM arrows -----------------------------------------------------------
 
@@ -240,8 +313,18 @@ class LifelongBackend:
             # switch to MAPPING
             map_pose = pose_np
             if cfg.dynamic_gate_unsupported:
-                raise NotImplementedError(
-                    f"the unsupported-point gate (dynamic_gate_unsupported) {_ITEM_11}"
+                # entering a mapped region: scan points with no map support
+                # are transients — keep them out of the stored keyframe
+                map_all = PointBatch(
+                    torch.cat([map_edge.xyz, map_surf.xyz]),
+                    torch.cat([map_edge.mask, map_surf.mask]),
+                )
+                pose_d = self._tensor(map_pose)
+                edge = PointBatch(
+                    edge.xyz, edge.mask & ~unsupported_mask(edge, map_all, pose_d), edge.attr,
+                )
+                surf = PointBatch(
+                    surf.xyz, surf.mask & ~unsupported_mask(surf, map_all, pose_d), surf.attr,
                 )
             kf_id = self.db.add_keyframe(stamp, odom_pose, map_pose, edge, surf)
             nn_ids, _ = self.db.nearest_ids(map_pose[4:], 1, max_id=kf_id)
@@ -295,6 +378,10 @@ class LifelongBackend:
             if loop_closed:
                 # revisiting mapped area → auto-switch to localization
                 self.mode = WorkMode.LOCALIZATION
+                if self._occ is not None:
+                    # graph poses moved: rebuild the synchronized grid
+                    with self.timer("occ_rebuild"):
+                        self._occ = occupancy_from_database(self.db, cfg.occupancy)
         return BackendOutput(
             self.mode, kf_id, np.asarray(map_pose), self.odom2map, loop_closed, np.nan, np.nan,
         )
@@ -402,6 +489,7 @@ class LifelongBackend:
             **priors,
         )
         self.db.update_poses(poses.cpu().numpy())
+        self._log_solve("full_replicated", n, stats)
         return stats
 
     def _optimize_window(self, w: int):
@@ -466,7 +554,20 @@ class LifelongBackend:
             **priors,
         )
         db.update_poses_range(base, opt.cpu().numpy()[n_old:V])
+        self._log_solve("windowed", V, stats)
         return stats
+
+    def _log_solve(self, kind: str, vertices: int, stats) -> None:
+        """Keep what the solve just run reported (one small copy to the host,
+        after the poses' own): ``solve_log[-1]`` is the last solve."""
+        chi2_0, chi2_1, iters = torch.stack([
+            stats.chi2_initial.to(torch.float64), stats.chi2_final.to(torch.float64),
+            stats.iterations.to(torch.float64),
+        ]).cpu().tolist()
+        self.solve_log.append({
+            "kind": kind, "keyframes": int(self.db.n_keyframes), "vertices": int(vertices),
+            "iterations": int(iters), "chi2_initial": chi2_0, "chi2_final": chi2_1,
+        })
 
     def force_global_optimize(self):
         """A full solve on demand."""
@@ -476,6 +577,11 @@ class LifelongBackend:
         self.db.save(path)
 
     @classmethod
-    def load(cls, path: str, storage_dir: str | None = None, **kwargs) -> "LifelongBackend":
-        """Boot from a saved database → RELOCALIZATION mode."""
-        return cls(db=KeyframeDatabase.load(path, storage_dir=storage_dir), **kwargs)
+    def load(cls, path: str, storage_dir: str | None = None, device="cuda",
+             **kwargs) -> "LifelongBackend":
+        """Boot from an existing database → RELOCALIZATION mode, the database
+        (and so the backend's work) on ``device``. ``storage_dir`` is
+        forwarded to :meth:`KeyframeDatabase.load` for disk-backed
+        checkpoints (default: a fresh session directory next to ``path``)."""
+        db = KeyframeDatabase.load(path, storage_dir=storage_dir, device=device)
+        return cls(db=db, **kwargs)

@@ -179,13 +179,18 @@ def knn_split_merge_plain(query_xyz, query_mask, ref_xyz, ref_mask, k: int,
 # ---------------------------------------------------------------------------
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_typed: set[str] = set()  # libraries whose entry points have their argument types
 
 
 def _library():
     """``csrc/knn.cu`` built and loaded at first use, its entry points typed
     (an untyped pointer argument would be cut to 32 bits)."""
     lib = _build.load(_KERNEL)
-    if lib.knn_partial_launch.argtypes is None:
+    if _KERNEL in _typed:
+        return lib
+    with _build.lock:  # two threads may reach the first launch together
+        if _KERNEL in _typed:
+            return lib
         for name, argtypes in (
             ("knn_partial_launch", [_PTR] * 4 + [_INT] * 6 + [_PTR] * 6),
             ("knn_merge_launch", [_PTR] * 4 + [_INT] * 3 + [_PTR] * 4),
@@ -200,6 +205,7 @@ def _library():
             raise RuntimeError(f"knn.cu was built with {built}, the wrapper expects "
                                f"{(THREADS, TILE, ALIGN, MERGE_LANES)}")
         _build.launches.setdefault(_MERGE, 0)
+        _typed.add(_KERNEL)  # last: a reader of the set sees every entry point typed
     return lib
 
 

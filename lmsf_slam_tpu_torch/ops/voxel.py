@@ -32,6 +32,18 @@ def _voxel_keys(xyz, mask, voxel_size, origin):
     return torch.where(mask, key, _KEY_INVALID)
 
 
+def _sum_dtype(xyz):
+    """The type the voxel sums are taken in. On a card index_add_ adds with
+    atomics in no fixed order, and a float32 sum that changes in its last bit
+    from run to run moves a centroid across a cell boundary at the next
+    rebuild, which a long course amplifies into decimetres. So CUDA tensors
+    are summed in float64 and rounded once: a float64 sum of a voxel's few
+    float32 terms rounds to the same float32 whatever the order. On the CPU
+    index_add_ adds in index order, as the reference's segment_sum does, and
+    float32 repeats and equals the reference bit for bit."""
+    return torch.float64 if xyz.is_cuda else xyz.dtype
+
+
 def voxel_downsample(pb: PointBatch, voxel_size: float, out_capacity: int) -> PointBatch:
     """Scatter-mean voxel downsample to a fixed-capacity PointBatch."""
     mask = pb.mask
@@ -48,11 +60,9 @@ def voxel_downsample(pb: PointBatch, voxel_size: float, out_capacity: int) -> Po
     # index_add_ would raise, and a boolean filter would cost a host sync)
     seg = torch.where(smask & (seg < out_capacity), seg, out_capacity).long()
     A = pb.attr.shape[-1]
-    sums = pb.xyz.new_zeros((out_capacity + 1, 3)).index_add_(0, seg, sxyz)
-    asum = pb.xyz.new_zeros((out_capacity + 1, A)).index_add_(0, seg, sattr)
-    counts = pb.xyz.new_zeros(out_capacity + 1).index_add_(
-        0, seg, smask.to(torch.float32)
-    )
-    sums, asum, counts = sums[:-1], asum[:-1], counts[:-1]
+    both = torch.cat([sxyz, sattr, smask.to(sxyz.dtype)[:, None]], dim=1).to(_sum_dtype(sxyz))
+    acc = both.new_zeros((out_capacity + 1, 4 + A)).index_add_(0, seg, both)[:-1]
+    counts = acc[:, 3 + A]
     denom = torch.clamp(counts, min=1.0)[:, None]
-    return PointBatch(sums / denom, counts > 0, asum / denom)
+    mean = (acc[:, :3 + A] / denom).to(pb.xyz.dtype)
+    return PointBatch(mean[:, :3], counts > 0, mean[:, 3:])

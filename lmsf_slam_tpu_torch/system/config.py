@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
+from ..mapping.occupancy import OccupancyConfig
 from .ml_system import FeatureParams, SystemConfig
 
 
@@ -49,9 +50,11 @@ def system_config_from_dict(doc: dict) -> SystemConfig:
             doc[rad_key] = math.radians(float(doc.pop(deg_key)))
     lifelong = doc.get("lifelong")
     if isinstance(lifelong, dict) and isinstance(lifelong.get("occupancy"), dict):
-        raise NotImplementedError(
-            "lifelong.occupancy: the occupancy grid is not ported yet "
-            "(ROADMAP.md section 1, item 11)"
+        # lifelong.occupancy defaults to None (disabled); a mapping enables
+        # the grid with overrides on top of the OccupancyConfig defaults
+        doc["lifelong"] = dict(lifelong)
+        doc["lifelong"]["occupancy"] = _merge(
+            OccupancyConfig(), lifelong["occupancy"], "lifelong.occupancy."
         )
     return _merge(SystemConfig(), doc)
 

@@ -6,14 +6,16 @@ single-LiDAR branch (one LiDAR, no IMU,
 ``organize_scan`` → ``extract_loam_features`` → ``tracker_step`` in one
 per-frame function (:func:`build_fused_step`), the host-side
 :class:`KeyframeGate` on the pose read back once per frame, the hand-off of
-keyframes to the sync lifelong backend (mapping, localization, loop closure,
-relocalization), and a :class:`FrameResult` every frame
-(:class:`MultiLidarSystem`).
+keyframes to the lifelong backend (mapping, localization, loop closure,
+relocalization) either inline or, with ``async_backend``, through the worker
+thread of :class:`..backend.async_backend.AsyncBackend`, and a
+:class:`FrameResult` every frame (:class:`MultiLidarSystem`), with ``save``
+/ ``load`` of the lifelong database.
 
 ``SystemConfig`` carries every field of the reference's, so configurations
 move between the packages unchanged; :class:`MultiLidarSystem` rejects the
-ones whose paths are not ported yet (several LiDARs, the IMU, the worker
-thread backend, registration methods other than ``feature_based``).
+ones whose paths are not ported yet (several LiDARs, the IMU, registration
+methods other than ``feature_based``).
 ``build_fused_step`` and :func:`read_frame` remain the front end alone, with
 no backend behind the gate.
 """
@@ -283,11 +285,8 @@ class MultiLidarSystem:
                 (config.n_lidars != 1,
                  "several LiDARs and their calibration (ROADMAP.md section 1, item 13)"),
                 (config.use_imu, "the IMU-aided front end (ROADMAP.md section 1, item 12)"),
-                (config.async_backend,
-                 "the worker-thread backend (ROADMAP.md section 1, item 10)"),
                 (config.registration_method != "feature_based",
-                 "registration methods other than feature_based (ROADMAP.md section 1, "
-                 "items 8 and 14)"),
+                 "registration methods other than feature_based (ROADMAP.md section 1, item 14)"),
             ) if bad
         ]
         if unported:
@@ -308,6 +307,14 @@ class MultiLidarSystem:
                 edge_capacity=f.edge_capacity, surf_capacity=f.surf_capacity, device=self.device
             )
             self.backend = LifelongBackend(db=db, config=config.lifelong, loop_config=config.loop)
+        self._async = None
+        if config.async_backend:
+            from ..backend.async_backend import AsyncBackend
+
+            self._async = AsyncBackend(self.backend, policy=config.async_policy)
+        # latest GNSS fix, attached to the next keyframe; stays None until
+        # process_gnss is ported with the IMU stack (ROADMAP.md item 12)
+        self._pending_gnss = None
         self.gate = KeyframeGate(config.keyframe_trans, config.keyframe_rot, config.keyframe_dt)
         self.results: list[FrameResult] = []
         self.extrinsics: list = []
@@ -338,22 +345,48 @@ class MultiLidarSystem:
         backend_out: Optional[BackendOutput] = None
         is_kf = self.gate.need_update(odom_pose, timestamp)
         if is_kf:
+            gnss = self._pending_gnss
+            self._pending_gnss = None
             grid_kw = scan_grid if self.backend.config.dynamic_carve_knn > 0 else None
-            backend_out = self.backend.add_keyframe(
-                timestamp, edge, surf, odom_pose, scan_grid=grid_kw
-            )
+            if self._async is not None:
+                # enqueue only: corrections arrive via the published odom2map;
+                # GNSS priors and the scan grid ride the queue. The clouds and
+                # the grid are fresh tensors of this frame's step, which
+                # nothing writes in place afterwards.
+                odom2map, mode, enqueued = self._async.submit(
+                    timestamp, edge, surf, odom_pose, gnss_pos=gnss, scan_grid=grid_kw,
+                )
+                if not enqueued and gnss is not None:
+                    # shed item ("drop" policy): the fix must not vanish —
+                    # re-stash it so it rides the next stored keyframe
+                    self._pending_gnss = gnss
+                if mode is WorkMode.RELOCALIZATION:
+                    # while the system does not know where it is, the
+                    # frontend must not run ahead of the relocalizer:
+                    # pre-reloc frames would be published in the odometry
+                    # frame and every queued scan is a stale reloc attempt
+                    # once one succeeds. Drain the queue so relocalization
+                    # happens at frame cadence, then resume pipelining.
+                    self._async.flush()
+            else:
+                backend_out = self.backend.add_keyframe(
+                    timestamp, edge, surf, odom_pose, gnss_pos=gnss, scan_grid=grid_kw,
+                )
+
+        if self._async is not None:
+            odom2map, mode = self._async.odom2map, self._async.mode
+        else:
+            odom2map, mode = self.backend.odom2map, self.backend.mode
 
         if backend_out is not None and backend_out.keyframe_id >= 0:
             map_pose = np.asarray(backend_out.map_pose)
         else:
-            map_pose = np.asarray(
-                se3np.pose_compose(self.backend.odom2map, odom_pose), np.float32
-            )
+            map_pose = np.asarray(se3np.pose_compose(odom2map, odom_pose), np.float32)
         result = FrameResult(
             timestamp=float(timestamp),
             odom_pose=odom_pose,
             map_pose=map_pose,
-            mode=self.backend.mode,
+            mode=mode,
             is_keyframe=is_kf,
             keyframe_id=(backend_out.keyframe_id if backend_out else -1),
             loop_closed=bool(backend_out.loop_closed) if backend_out else False,
@@ -374,11 +407,13 @@ class MultiLidarSystem:
 
     def keyframe_trajectory(self) -> np.ndarray:
         """Optimized keyframe poses from the backend database (K, 7)."""
+        self.flush()
         return self.backend.db.map_poses[: self.backend.db.n_keyframes].copy()
 
     def global_map(self, voxel_size: float = 0.0) -> np.ndarray:
         """Assemble the global map from all keyframe clouds at their current
         optimized poses. Returns a compact (M, 3) numpy array."""
+        self.flush()
         db = self.backend.db
         if db.n_keyframes == 0:
             return np.zeros((0, 3), np.float32)
@@ -390,23 +425,36 @@ class MultiLidarSystem:
             pts = pts[idx]
         return pts
 
+    def occupancy_grid(self):
+        """Synchronized 2D log-odds occupancy grid (None unless enabled via
+        ``LifelongConfig.occupancy``)."""
+        self.flush()
+        return self.backend.occupancy_grid()
+
     def force_global_optimize(self):
+        if self._async is not None:
+            return self._async.force_global_optimize()
         return self.backend.force_global_optimize()
 
     def flush(self):
-        """Drain the backend: a no-op, the sync backend has nothing queued."""
+        """Drain the async backend (no-op for the sync backend)."""
+        if self._async is not None:
+            self._async.flush()
 
     # -- persistence ------------------------------------------------------------
 
     def save(self, path: str):
+        self.flush()
         self.backend.save(path)
 
     @classmethod
     def load(cls, path: str, config: SystemConfig = SystemConfig(),
              storage_dir: Optional[str] = None, device="cuda") -> "MultiLidarSystem":
         """Boot from a saved lifelong database → backend starts in
-        RELOCALIZATION."""
+        RELOCALIZATION, database and frame on ``device``. ``storage_dir``:
+        session directory for disk-backed checkpoints."""
         backend = LifelongBackend.load(
-            path, storage_dir=storage_dir, config=config.lifelong, loop_config=config.loop
+            path, storage_dir=storage_dir, device=device, config=config.lifelong,
+            loop_config=config.loop,
         )
         return cls(config=config, backend=backend, device=device)

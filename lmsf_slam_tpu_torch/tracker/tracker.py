@@ -4,8 +4,9 @@ Counterpart of ``lmsf_slam_tpu/tracker/tracker.py``: constant-velocity
 prediction, edge+surf Gauss-Newton registration against a voxel-downsampled
 sliding-window local map, motion / prediction-trust health gates, optional
 constant-velocity deskew passes, the scene-flow gate and insert probation
-(both through ``nn1``, i.e. the k-NN kernel with k=1), and a branchless
-ring-buffer map update.
+(both through ``nn1``, i.e. the k-NN kernel with k=1), a branchless
+ring-buffer map update, and free-space carving of the rebuilt registration
+maps with the scan's range image (``carve_map``).
 
 ``tracker_step`` is a plain function of tensors with no host read: every
 decision the reference takes with ``jnp.where`` / ``lax.cond`` is a
@@ -15,10 +16,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
 from ..common import se3
 from ..common.pointcloud import ATTR_TIME, PointBatch
+from ..ops.dynamic import carve_dynamic
 from ..ops.neighbors import nn1
 from ..ops.preprocess import deskew as _deskew
 from ..ops.registration import RegistrationParams, RegistrationResult, register_edge_surf
@@ -57,8 +61,8 @@ class TrackerConfig(NamedTuple):
     probation: bool = False
     support_radius: float = 0.6  # m — map-supported admission
     consist_radius: float = 0.3  # m — probation re-sighting admission
-    # free-space carving of the registration map (needs ops.dynamic, which
-    # this package does not have yet)
+    # free-space carving of the registration map at every rebuild, with the
+    # range image of the scan that triggered it (``tracker_step(scan_grid=)``)
     carve_map: bool = False
     # ego-motion-compensated scene-flow gate before registration (0 disables)
     flow_gate: float = 0.0  # m at zero range
@@ -158,11 +162,6 @@ def tracker_step(
     ``prediction``: optional externally predicted pose (odom frame);
     defaults to constant-velocity extrapolation.
     """
-    if config.carve_map:
-        raise NotImplementedError(
-            "carve_map needs ops.dynamic.carve_dynamic, which this package "
-            "does not port yet"
-        )
     dev = state.pose.device
     f32 = torch.float32
     timestamp = torch.as_tensor(timestamp, dtype=f32, device=dev)
@@ -347,6 +346,22 @@ def tracker_step(
         localmap_flatten(new_surf_map), config.map_voxel_size,
         config.surf_map_capacity,
     )
+    if config.carve_map and scan_grid is not None:
+        # the scan's own elevation limits, left on the device
+        gm = scan_grid.mask
+        elev = torch.atan2(scan_grid.xyz[..., 2], _norm(scan_grid.xyz[..., :2]) + 1e-9)
+        elo = torch.min(torch.where(gm, elev, math.inf))
+        ehi = torch.max(torch.where(gm, elev, -math.inf))
+        ef = PointBatch(
+            ef.xyz,
+            ef.mask & carve_dynamic(scan_grid, ef, new_pose, elev_min=elo, elev_max=ehi),
+            ef.attr,
+        )
+        sf = PointBatch(
+            sf.xyz,
+            sf.mask & carve_dynamic(scan_grid, sf, new_pose, elev_min=elo, elev_max=ehi),
+            sf.attr,
+        )
     edge_flat = PointBatch(*(torch.where(need, a, b) for a, b in zip(
         (ef.xyz, ef.mask, ef.attr), (state.edge_flat.xyz, state.edge_flat.mask,
                                      state.edge_flat.attr))))

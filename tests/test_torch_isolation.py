@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -44,7 +45,7 @@ def test_port_imports_no_jax_at_run_time():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 33  # every module of the slices was imported
+    assert int(out.stdout.split()[-1]) >= 39  # every module of the slices was imported
 
 
 def test_port_source_names_no_jax():
@@ -59,6 +60,47 @@ def test_port_source_names_no_jax():
             else:
                 continue
             assert not any(_forbidden(n) for n in names), (path, node.lineno, names)
+
+
+LIFELONG_MODULES = ("backend.async_backend", "backend.session_merge", "ops.dynamic", "mapping",
+                    "mapping.occupancy", "datasets.city")
+
+
+@pytest.mark.parametrize("module", LIFELONG_MODULES)
+def test_lifelong_modules_name_no_jax(module):
+    """Each module of the lifelong deployment: no import statement, at any
+    depth (a function body included), names JAX or the reference package,
+    and what it imports from this package exists."""
+    path = PACKAGE / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = PACKAGE / module.replace(".", "/") / "__init__.py"
+    tree = ast.parse(path.read_text(), str(path))
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            imported.append(("." * node.level) + (node.module or ""))
+    assert imported and not any(_forbidden(n) for n in imported), imported
+    roots = {n.split(".")[0] for n in imported if not n.startswith(".")}
+    assert roots <= {"__future__", "contextlib", "threading", "collections", "typing", "math",
+                     "numpy", "torch"}, roots
+
+
+def test_lifelong_modules_import_no_jax_at_run_time():
+    code = (
+        "import importlib, sys\n"
+        f"for n in {LIFELONG_MODULES!r}: importlib.import_module('lmsf_slam_tpu_torch.' + n)\n"
+        "from lmsf_slam_tpu_torch.system.config import system_config_from_yaml\n"
+        "from lmsf_slam_tpu_torch.system import MultiLidarSystem\n"
+        "s = MultiLidarSystem(system_config_from_yaml('config/default.yaml'), device='cpu')\n"
+        "assert s._async is not None\n"
+        f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -69,3 +69,14 @@ def test_reference_views_off_16_byte_alignment():
     d2, i2, nbr2 = pk.knn_cuda(q, qm, r_view.clone(), rm_view.clone(), 5, splits=3, neighbors=True)
     assert torch.equal(d, d2) and torch.equal(i, i2) and torch.equal(nbr, nbr2)
     chip_smoke.compare_knn(pk, q, qm, r_view, rm_view, 5, exact_model=True)
+
+
+@pytest.mark.cuda
+def test_two_threads_launching_at_once_get_the_one_thread_results():
+    """The frontend and the backend's worker thread both launch the kernels
+    (current stream and scratch taken per thread): bit-equal results."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the k-NN kernels run only on one")
+    import chip_smoke
+
+    assert chip_smoke.threads_check(pk, rounds=50) == 100

@@ -283,6 +283,9 @@ def test_optimize_needs_an_edge_and_force_global_optimize_is_full(mapped):
 
 
 def test_unported_branches_raise(mapped, tmp_path):
+    """What still raises is the Schur solve (item 15). The hooks that raised
+    before this package had them now run: the occupancy grid, carving (only
+    with a range image), ``save`` and ``load``."""
     _, _, _, odom, feats = mapped
     e, s = to_port(feats[0][0]), to_port(feats[0][1])
 
@@ -291,28 +294,34 @@ def test_unported_branches_raise(mapped, tmp_path):
                                    config=pll.LifelongConfig(**{**LIFELONG, **kw}),
                                    loop_config=plc.LoopConfig(**LOOP))
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        backend(occupancy=plc.LoopConfig())  # any configuration object stands for the grid's
+    from lmsf_slam_tpu_torch.mapping import OccupancyConfig
+
+    b = backend(occupancy=OccupancyConfig(size=64, resolution=0.5))
+    assert b.occupancy_grid().shape == (64, 64) and not b.occupancy_grid().any()
+    b.add_keyframe(0.0, e, s, odom[0])
+    assert b.occupancy_grid().any()
     b = backend(dynamic_carve_knn=3)
     b.add_keyframe(0.0, e, s, odom[0])  # no range image handed over: nothing to carve with
-    with pytest.raises(NotImplementedError, match="item 11"):
-        b.add_keyframe(0.1, e, s, odom[1], scan_grid=object())
+    assert not b.db._dirty_rows
     b = backend(schur_submaps=4, schur_min_vertices=2)
     for i in range(3):
         b.add_keyframe(0.1 * i, e, s, odom[i])
     b.optimize(full=False)  # the Schur solve serves full solves only
     with pytest.raises(NotImplementedError, match="item 15"):
         b.optimize(full=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        b.save(str(tmp_path / "x.npz"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pll.LifelongBackend.load(str(tmp_path / "x.npz"))
+    b.save(str(tmp_path / "x.npz"))
+    loaded = pll.LifelongBackend.load(str(tmp_path / "x.npz"), device="cpu")
+    assert loaded.db.n_keyframes == 3 and loaded.mode is pll.WorkMode.RELOCALIZATION
+    assert [s_["kind"] for s_ in b.solve_log] == ["full_replicated"]
+    assert b.solve_log[0]["iterations"] >= 1 and b.solve_log[0]["vertices"] == 3
 
 
 def test_unsupported_point_gate_raises_on_map_update(mapped):
     """A localized scan inside the map-update window (score ≤ gate, overlap
-    inside its bounds) stores a keyframe and switches to MAPPING; with the
-    unsupported-point gate configured that branch raises."""
+    inside its bounds) stores a keyframe and switches to MAPPING. With the
+    unsupported-point gate configured (it raised before it was ported; the
+    name is kept) the stored keyframe leaves out the scan points without map
+    support, the same points as in the reference."""
     jb, _, traj, _, feats = mapped
     cfg = dict(map_update_score=1.0, map_update_overlap_lo=0.0, map_update_overlap_hi=1.01)
     e, s = feats[20]
@@ -323,11 +332,87 @@ def test_unsupported_point_gate_raises_on_map_update(mapped):
     out = p2.add_keyframe(50.0, to_port(e), to_port(s), odom)
     assert out.mode is pll.WorkMode.MAPPING and out.keyframe_id == n
     assert p2.db.n_edges == jb.db.n_edges + 1 and p2._pending == 1
-    _, p3 = make_backends(lifelong={**cfg, "dynamic_gate_unsupported": True},
-                          pdb_=carry_database(jb.db))
-    p3.mode = pll.WorkMode.LOCALIZATION
-    with pytest.raises(NotImplementedError, match="item 11"):
-        p3.add_keyframe(50.0, to_port(e), to_port(s), odom)
+    # a phantom object in the scan, 3 m up in free space: no map supports it
+    ghost = np.array(e.xyz)
+    free = np.nonzero(~np.asarray(e.mask))[0][:8]
+    ghost[free] = np.array([1.0, 0.5, 3.0], np.float32) + 0.05 * np.arange(8)[:, None]
+    gmask = np.array(e.mask)
+    gmask[free] = True
+    eg = JPB(jnp.asarray(ghost), jnp.asarray(gmask))
+    gated = {**cfg, "dynamic_gate_unsupported": True}
+    j3, p3 = make_backends(lifelong=gated, jdb_=carry_jax_database(jb.db),
+                           pdb_=carry_database(jb.db))
+    j3.mode, p3.mode = jll.WorkMode.LOCALIZATION, pll.WorkMode.LOCALIZATION
+    a = j3.add_keyframe(50.0, eg, s, odom)
+    b = p3.add_keyframe(50.0, to_port(eg), to_port(s), odom)
+    assert (a.mode.name, a.keyframe_id) == (b.mode.name, b.keyframe_id) == ("MAPPING", n)
+    stored_j, stored_p = j3.db.edge_mask[n], p3.db.edge_mask[n]
+    assert not stored_p[free].any() and gmask[free].all()  # the phantom stayed out
+    # the float32 reference's localization pose differs by up to 5e-2 m, so a
+    # point at the 0.5 m support radius may fall on either side
+    assert (stored_p != stored_j).sum() <= 0.02 * gmask.sum()
+    assert (p3.db.surf_mask[n] != j3.db.surf_mask[n]).sum() <= 0.02 * np.asarray(s.mask).sum()
+    assert stored_p.sum() < p2.db.edge_mask[n].sum() + 8
+
+
+def test_solve_log_matches_the_reference_solves_after_a_loop_closure():
+    """Every solve of a run that goes on mapping after its loop closed, held
+    against the statistics the reference's solver returned for the same
+    solve (its ``optimize_pose_graph`` is wrapped for the run, the package is
+    untouched). With the map-update window open a localized scan is stored
+    and the backend returns to MAPPING, so loop edges keep coming and every
+    later solve is a full one over a graph with robust edges. The two graphs
+    differ by the loop edges' measurements (5e-3, see the module docstring),
+    so: the same solves in the same order over the same vertices; GN
+    iterations equal or one apart (the exit test ``max|dx| < converged_dx``
+    sits on those differences), and both well under the cap of ``gn_iters``,
+    which shows the exit flag ends the loop in both; chi2 after the solve
+    within 15 % (measured up to 10 %)."""
+    n = 52
+    traj, scans = loop_course()
+    feats = [jax.tree.map(np.asarray, reference_features(*map(jnp.asarray, s))) for s in scans]
+    odom = drifted_odometry(np.concatenate([traj, traj])[:n])
+    jb, pb = make_backends(lifelong=dict(map_update_score=1.0, map_update_overlap_lo=0.0,
+                                         map_update_overlap_hi=1.01))
+    ref, solver = [], jll.optimize_pose_graph
+
+    def recording(*args, **kwargs):
+        out = solver(*args, **kwargs)
+        ref.append(out[1])
+        return out
+
+    jll.optimize_pose_graph = recording
+    try:
+        for i in range(n):
+            e, s = feats[i % N]
+            jb.add_keyframe(0.1 * i, e, s, odom[i])
+            pb.add_keyframe(0.1 * i, to_port(e), to_port(s), odom[i])
+    finally:
+        jll.optimize_pose_graph = solver
+    assert_same_decisions(jb.history, pb.history)
+    assert pb.solver_runs == jb.solver_runs and len(pb.solve_log) == len(ref)
+    first = [h.loop_closed for h in pb.history].index(True)
+    after = [s for s in pb.solve_log if s["keyframes"] > first]
+    assert len(after) >= 5 and all(s["kind"] == "full_replicated" for s in after)
+    cap = pb.config.pose_graph.gn_iters
+    for want, got in zip(ref, pb.solve_log):
+        assert abs(got["iterations"] - int(want.iterations)) <= 1, got
+        assert got["iterations"] < cap and int(want.iterations) < cap, got
+        assert got["chi2_final"] == pytest.approx(float(want.chi2_final), rel=0.15, abs=1e-6), got
+
+
+def carry_jax_database(j):
+    """A copy of a reference database (a run on it must not alter the
+    fixture's)."""
+    c = jdb.KeyframeDatabase(**{**DB, "initial_keyframes": max(j.n_keyframes, 1)})
+    n, e = j.n_keyframes, j.n_edges
+    for name in KEYFRAME_DB_FIELDS:
+        getattr(c, name)[:n] = getattr(j, name)[:n]
+    c._ensure_edge_capacity(max(e, 1))
+    for name in KEYFRAME_DB_EDGE_FIELDS:
+        getattr(c, name)[:e] = getattr(j, name)[:e]
+    c.n_keyframes, c.n_edges = n, e
+    return c
 
 
 def test_configs_match_reference():

@@ -124,6 +124,31 @@ def test_voxel_downsample_matches_reference(voxel_size, cap):
     _assert_pb(pv.voxel_downsample(pb, voxel_size, cap), jv.voxel_downsample(jb, voxel_size, cap))
 
 
+@pytest.mark.parametrize("voxel_size,cap", [(0.25, 4096), (0.5, 600)])
+def test_voxel_downsample_summed_as_on_the_card(monkeypatch, voxel_size, cap):
+    """CUDA tensors are summed in float64 (``_sum_dtype``), because the card
+    adds in no fixed order. That arithmetic, run here on the CPU: it agrees
+    with the reference to the tolerance of the float32 path (1e-6), and the
+    result does not depend on the order of the points, bit for bit, over
+    five shuffles of the cloud (a shuffle reorders the points inside every
+    voxel, which is what the card's atomics do)."""
+    monkeypatch.setattr(pv, "_sum_dtype", lambda xyz: torch.float64)
+    xyz, mask, attr = _scan(corrupt=False)
+    jb, pb = _both(xyz, mask, attr)
+    first = pv.voxel_downsample(pb, voxel_size, cap)
+    assert first.xyz.dtype == torch.float32 and first.attr.dtype == torch.float32
+    _assert_pb(first, jv.voxel_downsample(jb, voxel_size, cap))
+    origin = pv._snap_origin(pb.xyz, pb.mask, voxel_size)
+    rng = np.random.default_rng(11)
+    for _ in range(5):
+        order = rng.permutation(len(xyz))
+        _, shuffled = _both(xyz[order], mask[order], attr[order])
+        assert torch.equal(pv._snap_origin(shuffled.xyz, shuffled.mask, voxel_size), origin)
+        got = pv.voxel_downsample(shuffled, voxel_size, cap)
+        assert torch.equal(got.mask, first.mask)
+        assert torch.equal(got.xyz, first.xyz) and torch.equal(got.attr, first.attr)
+
+
 def _grids():
     jb, pb = _both(*_scan())
     jb = jp.preprocess(jb)
