@@ -6,9 +6,10 @@
 Needs one CUDA device; exits non-zero without one, or when any phase fails.
 Phases, one line each:
 
-1. build   — compile ``lmsf_slam_tpu_torch/csrc/knn.cu`` with nvcc for
-             sm_90a (into ``build/kernels/``) and print ptxas' register,
-             shared-memory and spill summary;
+1. build   — compile ``lmsf_slam_tpu_torch/csrc/knn.cu`` and
+             ``csrc/projector.cu`` with nvcc for sm_90a (into
+             ``build/kernels/``, one nvcc a source, started together) and
+             print ptxas' register, shared-memory and spill summary;
 2. kernel  — hold the k-NN kernels (``knn_cuda``: the scan over reference
              slices and the merge) against the plain torch version of the
              whole function (``knn_plain``) on the card: at the slice's
@@ -24,15 +25,28 @@ Phases, one line each:
              time kernels, plain version and ``torch.cdist`` + ``torch.topk``
              (a yardstick the port never calls) with CUDA events, beside the
              bound and the time of an empty launch;
+2b. projector — hold the degeneracy projector kernel (``projector_cuda``:
+             cyclic Jacobi of the registration's 6×6 normal matrix in float64)
+             against its plain version (``projector_plain``, through
+             ``torch.linalg.eigh``) on the card: at the normal matrices of
+             every association of fused frames 1 and 2, one a launch as the path
+             launches it, at corner cases (non-finite, a corridor with one
+             direction under the floor, isotropic, the absolute floor, zero)
+             and over a batch of random normal matrices: equal counts of
+             constrained directions, projectors within 1e-9. Then time it
+             beside ``torch.linalg.eigh`` alone, the plain version and the
+             bound;
 3. slice   — 60 frames of a simulated VLP-16 course through
              ``build_fused_step(SystemConfig(), "cuda")`` and the keyframe
              gate at the default widths, one read-back per frame; checks the
              poses are finite, the ATE against ground truth, that every
-             association went through the kernels (launch counters), and that
-             the first 10 frames agree with the same run on the CPU;
+             association went through the kernels (launch counters: k-NN and
+             projector), and that the first 10 frames agree with the same run
+             on the CPU;
 4. profile — ``torch.profiler`` over 10 frames: device time and device events
              per frame and the kernels that take the time, beside what the
-             earlier one-thread-a-query kernel read;
+             earlier one-thread-a-query kernel read; one device-to-host copy a
+             frame (the frame's read-back);
 5. backend — the whole system at full width: 120 frames of a closed circle of
              9 m radius (world of 30 m extent, 14 boxes, 24 cylinders; scans
              16 × 900 to 60 m) through ``MultiLidarSystem(config).process`` on
@@ -57,9 +71,13 @@ Phases, one line each:
              ``MultiLidarSystem(config._replace(async_backend=True))``: the
              backend on its worker thread, policy ``coalesce``, then
              ``flush()``. Checks: nothing dropped, the same loop edges and
-             final mode as the sync run, map-frame ATE under 0.15 m and within
-             0.02 m of the sync run's. Prints sync beside async: frame times,
-             keyframe-frame times, the peak backlog, ``coalesced``, stages;
+             final mode as the sync run, map-frame ATE under 0.15 m, the
+             front end's odometry equal to the sync run's, the keyframe map
+             poses after the flush equal to the sync run's, and every frame's
+             correction one the sync run had published by that frame (all to
+             1e-3; the worker's lag, which the host's speed sets, decides
+             which). Prints sync beside async: frame times, keyframe-frame
+             times, the lag, the peak backlog, ``coalesced``, stages;
 8. city    — this slice's path at full width: the first 500 frames of the
              city course (a street grid of 3 × 2 blocks, 18 buildings and 136
              trunks, 8 moving cars), HDL-64 scans (64 × 1800, 2.5–80 m, noise
@@ -91,7 +109,29 @@ Phases, one line each:
              drove, in its own map frame; ``align_sessions`` must find at
              least 3 consistent matches and the transform within 0.5 m / 2°
              of the truth; ``merge_sessions`` then a full solve: counts add
-             up, inter-session edges are loop edges, finite poses.
+             up, inter-session edges are loop edges, finite poses;
+11. lio    — the IMU-aided system at full width: the first 300 frames of the
+             city course as HDL-64 motion-blurred sweeps (each azimuth
+             column cast from its own pose along the frame's motion),
+             rendered on the card, with the course's 100 Hz IMU windows
+             (seed 7), through ``MultiLidarSystem(config, device="cuda")``
+             with ``use_imu`` and the sync backend, the configuration of
+             ``scripts/evaluate.py::run_city --imu --sync`` (no movers, no
+             probation; one cut: the submap Schur solve is off), the filter
+             anchored with the course velocity. Checks: finite poses, map-frame
+             ATE under 0.3 m, a loop closed, no failure reset of the filter,
+             every association through the k-NN and projector kernels (launch
+             counters), no device-to-host copy in the filter's own work and one
+             (the frame's read-back) on each profiled frame without a keyframe,
+             the first 5 frames within 1e-3 m of the same frames on the CPU; a
+             GNSS
+             fix after frame 0 of a second, short run rides the next keyframe as
+             a prior at the ENU origin; then ``FactorGraphLio`` over 40 of the
+             course's IMU windows with the LIO poses as priors, card against
+             CPU to 1e-4 m, chi2 falling at every solve. Prints frame times,
+             device events and read-backs a frame beside the fused frame's, the
+             ESKF propagation's time a frame, the backend's stages and the peak
+             device memory.
 
 Temporary files go under ``build/chip_smoke_tmp`` and are removed. Then the
 card's name and power limit, one JSON line of kernel numbers, and the result
@@ -115,6 +155,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # The H100 SXM's published peaks (NVIDIA data sheet): FP32 outside the tensor
 # cores and HBM3 bandwidth. Used for the bound only.
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12  # FP64 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 N_FRAMES = 60
@@ -122,6 +163,9 @@ N_CPU_FRAMES = 10
 ATE_LIMIT = 0.15  # m, the reference system test's threshold
 CPU_AGREE = 1e-3  # m / quaternion component, card vs CPU over the first frames
 KNN_PER_FRAME = 10  # 5 associations × (edge + surf) at the default cadence
+PROJECTOR_PER_FRAME = 5  # one degeneracy projector an association
+PROJECTOR_AGREE = 1e-9  # projector entries, kernel vs torch.linalg.eigh (both float64)
+PROJECTOR_BATCH = 4096  # random normal matrices compared in one launch
 
 # What the profile phase read on the earlier one-thread-a-query kernel, whose
 # wrapper rescored and sorted with torch ops (NVIDIA H100 80GB HBM3, 700 W),
@@ -170,7 +214,6 @@ CITY_SHAPES = [
 ]
 
 # phases async, city, persist and merge
-ASYNC_ATE_SLACK = 0.02  # m, async map-frame ATE against the sync run's
 CITY_SEED = 0
 # 500 frames: the graph passes optimize_window + 1 = 101 keyframes (one every
 # third frame) near frame 410, so that a windowed solve runs; the block's
@@ -187,6 +230,15 @@ MERGE_FRAMES = 120
 MERGE_LIMIT_M = 0.5
 MERGE_LIMIT_DEG = 2.0
 TMP = os.path.join(ROOT, "build", "chip_smoke_tmp")
+# phase lio: the first frames of the city course through the IMU-aided system
+LIO_FRAMES = 300
+LIO_ATE_LIMIT = 0.3  # m, twice the reference's 0.145 m over the same 300 frames
+LIO_CPU_FRAMES = 5  # frames compared with the same run on the CPU
+LIO_KNN_PER_FRAME = 8  # 4 associations × (edge + surf); no probation under IMU
+LIO_PROFILE_FRAMES = range(100, 112)  # frames profiled one by one (not timed)
+LIO_GNSS_LLA = (48.0, 11.0, 500.0)  # the fix that anchors the ENU frame
+LIO_GRAPH_WINDOWS = 40  # IMU windows through FactorGraphLio
+LIO_GRAPH_AGREE = 1e-4  # m, card vs CPU
 
 
 class SmokeFailure(RuntimeError):
@@ -515,6 +567,158 @@ def phase_kernel(K):
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the degeneracy projector kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def projector_bound_ms(B, sweeps_total):
+    """Least time on the card: the larger of the FP64 work these inputs need
+    (81 operations a Jacobi rotation, 15 pair tests a sweep, the sweeps each
+    matrix took; 432 a projector) and the bytes (H and the match count read
+    once, P and the count written once)."""
+    ops = 81.0 * 15 * sweeps_total + 432.0 * B
+    nbytes = B * (36 * 4 + 4 + 36 * 8 + 4)
+    t_ops = ops / PEAK_FP64_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def capture_normal_matrices(scans, frames=2):
+    """The registration's (H, match count) at every association of fused
+    frames 1.. on the card: the inputs the main path gives the projector
+    (frame 0 registers against an empty map, H = 0)."""
+    import torch
+
+    from lmsf_slam_tpu_torch.ops import projector as PJ
+    from lmsf_slam_tpu_torch.system import SystemConfig, build_fused_step
+    from lmsf_slam_tpu_torch.tracker import tracker_init
+
+    cfg = SystemConfig()
+    tc, step = build_fused_step(cfg, "cuda")
+    captured, real = [], PJ.degeneracy_projector
+
+    def recording(H, nmatch, *args):
+        captured.append((H.detach().to(torch.float32).clone(), nmatch.detach().clone()))
+        return real(H, nmatch, *args)
+
+    PJ.degeneracy_projector = recording
+    try:
+        run_frames(step, tracker_init(tc, "cuda"), scans, (cfg.keyframe_trans, cfg.keyframe_rot,
+                                                         cfg.keyframe_dt), frames + 1)
+    finally:
+        PJ.degeneracy_projector = real
+    torch.cuda.synchronize()
+    return captured[PROJECTOR_PER_FRAME:], cfg.registration
+
+
+def compare_projector(PJ, H, nmatch, params):
+    """Kernel against ``projector_plain`` (``torch.linalg.eigh``) on the card:
+    the same count of directions above the floor everywhere, NaN where H is
+    not finite, and the projectors within PROJECTOR_AGREE (float64 Jacobi and
+    cuSOLVER's decomposition agree to a few 1e-15 relative to the largest
+    eigenvalue; a projector's entries are O(1)). Returns (max |ΔP|, sweeps)."""
+    import torch
+
+    args = (params.damping, params.degen_rel, params.degen_thresh)
+    P_k, n_k, sw = PJ.projector_cuda(H, nmatch, *args, sweeps=True)
+    P_r, n_r = PJ.projector_plain(H, nmatch, *args)
+    torch.cuda.synchronize()
+    check(P_k.dtype == torch.float64 and P_k.shape == P_r.shape, "projector output shape or type")
+    check(torch.equal(n_k, n_r), f"projector counts differ: kernel {n_k.flatten()[:8].tolist()}, "
+          f"plain {n_r.flatten()[:8].tolist()}")
+    nan_r = torch.isnan(P_r)
+    check(torch.equal(torch.isnan(P_k), nan_r), "projector NaNs differ from the plain version's")
+    err = float(torch.max(torch.where(nan_r, 0.0, torch.abs(P_k - P_r))))
+    check(err <= PROJECTOR_AGREE, f"projector differs from the plain version by {err:.3g} "
+          f"(limit {PROJECTOR_AGREE})")
+    return err, sw
+
+
+def phase_projector(scans):
+    """The projector kernel (``projector_cuda``) against ``projector_plain``
+    on the card: at the registration's own normal matrices from fused frames
+    1 and 2, at corner cases, and over a batch of random normal matrices; then
+    timed at the path's shape (one matrix a launch) beside
+    ``torch.linalg.eigh`` alone, the plain version and the bound."""
+    import torch
+
+    from lmsf_slam_tpu_torch.ops import projector as PJ
+
+    dev = torch.device("cuda")
+    captured, params = capture_normal_matrices(scans)
+    check(len(captured) == 2 * PROJECTOR_PER_FRAME,
+          f"captured {len(captured)} normal matrices from 2 frames, expected "
+          f"{2 * PROJECTOR_PER_FRAME}")
+    rows, errs, sweeps = {}, [], []
+    for H, nmatch in captured:  # one matrix a launch, as the path launches
+        err, sw = compare_projector(PJ, H, nmatch, params)
+        errs.append(err)
+        sweeps.append(int(sw))
+    n_con = [int(PJ.projector_cuda(H, m, params.damping, params.degen_rel,
+                                   params.degen_thresh)[1]) for H, m in captured]
+    rows["frames"] = {"matrices": len(captured), "max_abs_err": max(errs), "sweeps": sweeps,
+                      "n_constrained": n_con}
+    log("projector", f"{len(captured)} normal matrices of fused frames 1 and 2, one a launch: equal "
+        f"counts ({n_con}), max |ΔP| {max(errs):.3g} (limit {PROJECTOR_AGREE}); Jacobi sweeps "
+        f"{sweeps}")
+
+    g = np.random.default_rng(11)
+    H0, m0 = captured[0]
+    corridor = g.standard_normal((400, 6))
+    corridor[:, 3] *= 1e-4  # no constraint along x: one direction under the floor
+    cases = {
+        "non-finite": (torch.full((6, 6), float("nan"), device=dev), m0),
+        "corridor": (torch.as_tensor(corridor.T @ corridor * 50.0, dtype=torch.float32,
+                                     device=dev), torch.tensor(400, dtype=torch.int32,
+                                                               device=dev)),
+        "isotropic": (torch.eye(6, device=dev) * 1000.0, m0),
+        "absolute floor": (H0, None),
+        "zero": (torch.zeros((6, 6), device=dev), m0),
+    }
+    for name, (H, m) in cases.items():
+        err, sw = compare_projector(PJ, H, m, params)
+        rows[name] = {"max_abs_err": err, "sweeps": int(sw)}
+        errs.append(err)
+    J = g.standard_normal((PROJECTOR_BATCH, 64, 6))
+    J[: PROJECTOR_BATCH // 4, :, g.integers(0, 6)] *= 1e-3  # a quarter degenerate
+    Hb = torch.as_tensor(np.einsum("bki,bkj->bij", J, J) * g.uniform(1, 400, (PROJECTOR_BATCH, 1, 1)),
+                         dtype=torch.float32, device=dev)
+    mb = torch.as_tensor(g.integers(50, 4000, PROJECTOR_BATCH), dtype=torch.int32, device=dev)
+    err, sw = compare_projector(PJ, Hb, mb, params)
+    rows[f"batch {PROJECTOR_BATCH}"] = {"max_abs_err": err, "sweeps_max": int(sw.max())}
+    errs.append(err)
+    log("projector", "corner cases (non-finite, a corridor with one direction under the floor, "
+        "isotropic, the absolute floor, zero) and a batch of "
+        f"{PROJECTOR_BATCH} random normal matrices in one launch: equal counts, max |ΔP| "
+        + ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in rows.items() if k != "frames"))
+
+    # timed at the path's shape: one of the frames' matrices a launch
+    H, m = captured[len(captured) // 2]
+    args = (params.damping, params.degen_rel, params.degen_thresh)
+    A = (H.to(torch.float64) + params.damping * torch.eye(6, dtype=torch.float64, device=dev))
+
+    def kern():
+        return PJ.projector_cuda(H, m, *args)
+
+    def plain():
+        return PJ.projector_plain(H, m, *args)
+
+    def lib():
+        return torch.linalg.eigh(A)
+
+    p1, k1, l1, k2, p2 = (cuda_ms(f, 100) for f in (plain, kern, lib, kern, plain))
+    sw_one = sweeps[len(captured) // 2]
+    bound, by = projector_bound_ms(1, sw_one)
+    out = {"cases": rows, "max_abs_err": max(errs), "ms": (k1 + k2) / 2,
+           "plain_ms": (p1 + p2) / 2, "library_ms": l1, "bound_ms": bound, "bound_by": by,
+           "call_ms": cuda_ms(kern, 100, queued=False), "sweeps": sw_one}
+    log("projector", f"one 6x6 matrix a launch ({sw_one} sweeps): kernel {out['ms']:.4f} ms "
+        f"({out['call_ms']:.4f} ms a call at Python's pace), plain {out['plain_ms']:.4f} ms, "
+        f"torch.linalg.eigh alone {l1:.4f} ms, bound {bound:.3g} ms ({by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the slice
 # ---------------------------------------------------------------------------
 
@@ -577,6 +781,9 @@ def phase_slice(traj, scans):
     for name in ("knn", "knn_merge"):  # every association is split, so each has its merge
         check(launches.get(name, 0) == want,
               f"{name} launches {launches.get(name, 0)} on the main path, expected {want}")
+    want = PROJECTOR_PER_FRAME * N_FRAMES
+    check(launches.get("projector", 0) == want,
+          f"projector launches {launches.get('projector', 0)} on the main path, expected {want}")
 
     # the same port on the CPU (plain k-NN) over the first frames
     tc_cpu, step_cpu = build_fused_step(cfg, "cpu")
@@ -592,6 +799,7 @@ def phase_slice(traj, scans):
     out = {
         "frames": N_FRAMES, "ate_rmse_m": ate, "knn_launches": launches.get("knn", 0),
         "knn_merge_launches": launches.get("knn_merge", 0),
+        "projector_launches": launches.get("projector", 0),
         "frame_ms_median": float(np.median(ms)), "frame_ms_p90": float(np.percentile(ms, 90)),
         "frame_ms_first": float(ms[0]), "frame_ms_all": ms.tolist(),
         "cpu_frame_ms_median": float(np.median(np.asarray(times_cpu) * 1e3)),
@@ -603,21 +811,50 @@ def phase_slice(traj, scans):
         f"ms/frame median {out['frame_ms_median']:.2f}, p90 {out['frame_ms_p90']:.2f} "
         f"(first {ms[0]:.1f}); knn launches {out['knn_launches']} "
         f"({out['knn_launches'] / N_FRAMES:g}/frame), knn_merge launches "
-        f"{out['knn_merge_launches']}; peak device memory "
+        f"{out['knn_merge_launches']}, projector launches {out['projector_launches']}; peak "
+        f"device memory "
         f"{peak / 2**20:.1f} MiB; card vs CPU over {N_CPU_FRAMES} frames max |Δpose| "
         f"{dev_cpu:.3g}; keyframes {out['keyframes']}")
     return out
 
 
+def profile_counts(prof, n):
+    """What a ``torch.profiler`` trace over ``n`` frames shows a frame:
+    device rows (name, ms, calls), device ms, device events, device-to-host
+    and host-to-device copies, and host waits (``cudaStreamSynchronize``:
+    a read-back, or a copy from pageable host memory, waits for the card).
+    Busy time sums the device-side events (kernels, copies) only: a host
+    op's row repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    rows, dtoh, htod, waits = [], 0, 0, 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            if ev.key == "cudaStreamSynchronize":
+                waits += ev.count
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us and dev_us > 0:
+            rows.append((ev.key, dev_us / 1e3 / n, ev.count / n))
+        if "Memcpy DtoH" in ev.key:
+            dtoh += ev.count
+        elif "Memcpy HtoD" in ev.key:
+            htod += ev.count
+    rows.sort(key=lambda x: -x[1])
+    return {"rows": rows, "device_ms": sum(r[1] for r in rows),
+            "device_events": sum(r[2] for r in rows), "dtoh": dtoh / n, "htod": htod / n,
+            "waits": waits / n}
+
+
 def phase_profile(scans, frame_ms):
     """Device time per frame and its largest kernels, over frames 2..11 of a
     fresh run (torch.profiler; "not measured" where it reports no device
-    time). Busy time sums the device-side events (kernels, copies) only: a
-    host op's row repeats the time of the kernels it launched. The busy share
-    is taken of ``frame_ms``, the unprofiled median frame time, since the
-    profiler slows the host."""
+    time; :func:`profile_counts`), with the copies and host waits a frame.
+    The busy share is taken of ``frame_ms``, the unprofiled median frame
+    time, since the profiler slows the host."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from lmsf_slam_tpu_torch.system import SystemConfig, build_fused_step
@@ -634,23 +871,19 @@ def phase_profile(scans, frame_ms):
         run_frames(step, state, scans[2:], gate_cfg, n)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us and dev_us > 0:
-            rows.append((ev.key, dev_us / 1e3 / n, ev.count / n))
-    rows.sort(key=lambda x: -x[1])
+    counts = profile_counts(prof, n)
+    rows = counts["rows"]
     if not rows:
         log("profile", "device time: not measured (the profiler reported none)")
         return {"device_ms_per_frame": None}
-    total = sum(r[1] for r in rows)
+    total = counts["device_ms"]
     knn_ms = sum(r[1] for r in rows if "knn_partial_kernel" in r[0] or "knn_merge_kernel" in r[0])
-    launches = sum(r[2] for r in rows)
+    launches = counts["device_events"]
     check(knn_ms > 0, "the profile shows no k-NN kernel on the device")
+    check(any("projector_kernel" in r[0] for r in rows),
+          "the profile shows no projector kernel on the device")
+    check(counts["dtoh"] == 1, f"the fused frame copied {counts['dtoh']:g} times a frame from the "
+          "card, not once (its read-back)")
     check(launches < EARLIER_EVENTS_PER_FRAME,
           f"{launches:g} device events a frame, not fewer than {EARLIER_EVENTS_PER_FRAME} "
           "(the one-thread-a-query kernel)")
@@ -659,10 +892,12 @@ def phase_profile(scans, frame_ms):
         f"the {frame_ms:.2f} ms median frame (idle {100 - 100 * total / frame_ms:.1f}%), "
         f"{launches:g} device events (one-thread-a-query kernel: {EARLIER_EVENTS_PER_FRAME}); knn kernels "
         f"{knn_ms:.3f} ms (one-thread-a-query kernel: {EARLIER_KNN_MS_PER_FRAME}); profiled wall "
-        f"{wall:.2f} ms; top: {top}")
+        f"{wall:.2f} ms; device-to-host copies {counts['dtoh']:g}, host-to-device copies "
+        f"{counts['htod']:g}, host waits (cudaStreamSynchronize) {counts['waits']:g}; top: {top}")
     return {"profiled_wall_ms_per_frame": wall, "device_ms_per_frame": total,
             "device_busy_share": total / frame_ms, "device_events_per_frame": launches,
-            "knn_device_ms_per_frame": knn_ms,
+            "dtoh_per_frame": counts["dtoh"], "htod_per_frame": counts["htod"],
+            "host_waits_per_frame": counts["waits"], "knn_device_ms_per_frame": knn_ms,
             "kernels": [{"name": k, "ms_per_frame": ms, "calls_per_frame": c}
                         for k, ms, c in rows[:25]]}
 
@@ -774,6 +1009,7 @@ def phase_backend(traj, scans):
     _build.reset_launches()
     first_kf = {}
     solves = []  # (keyframes stored, loop closed, solver runs) after every keyframe frame
+    corrections = [np.asarray(system.backend.odom2map).copy()]  # before and after each frame
 
     def snapshot(sys_, res):
         # the first keyframes' map poses, when the last of them is stored
@@ -782,6 +1018,7 @@ def phase_backend(traj, scans):
         if res.is_keyframe:
             solves.append((sys_.backend.db.n_keyframes, res.loop_closed,
                            dict(sys_.backend.solver_runs)))
+        corrections.append(np.asarray(sys_.backend.odom2map).copy())
         return False
 
     results, times = drive(system, scans, stamps, stop=snapshot)
@@ -821,6 +1058,9 @@ def phase_backend(traj, scans):
         check(launches.get(name, 0) > per_frame * n,
               f"{name}: {launches.get(name, 0)} launches on the backend path, the frames "
               f"alone make {per_frame * n}")
+    check(launches.get("projector", 0) > per_frame // 2 * n,
+          f"projector: {launches.get('projector', 0)} launches on the backend path, the frames "
+          f"alone make {per_frame // 2 * n}")
     knn_backend = launches["knn"] - per_frame * n
 
     # the same course on the CPU (plain k-NN) until the first keyframes are stored
@@ -853,10 +1093,14 @@ def phase_backend(traj, scans):
         "frame_ms_max": float(ms.max()), "frame_ms_all": ms.tolist(),
         "is_keyframe": is_kf.tolist(), "stage_ms": stats,
         "knn_launches": launches["knn"], "knn_merge_launches": launches["knn_merge"],
+        "projector_launches": launches["projector"],
         "knn_launches_per_backend_keyframe": knn_backend / max(n_kf_frames, 1),
         "mirror_bytes": mirror_nbytes(db), "mirror_rows": int(db._mirror["cap"]),
         "peak_device_bytes": int(peak), "cpu_keyframes_max_abs_pose_diff": dev_cpu,
         "cpu_frame_ms_median": float(np.median(np.asarray(times_cpu) * 1e3)),
+        # what phase async holds its run to
+        "odom_poses": odom.tolist(), "keyframe_map_poses": system.keyframe_trajectory().tolist(),
+        "odom2map_before_and_after_each_frame": np.stack(corrections).tolist(),
     }
     log("backend", f"{n} frames, {n_kf_frames} through the gate, {db.n_keyframes} keyframes and "
         f"{db.n_edges} edges stored; loops closed {len(closed)} (first at frame {closed[0]}, "
@@ -904,7 +1148,7 @@ def phase_reboot(traj, scans, first):
     results, times = drive(system, [scans[i] for i in frames], [100.0 + 0.1 * i for i in frames])
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    for name in ("knn", "knn_merge"):
+    for name in ("knn", "knn_merge", "projector"):
         check(launches.get(name, 0) > 0, f"{name} was not launched on the reboot path")
     localized = [k for k, r in enumerate(results) if r.mode is not WorkMode.RELOCALIZATION]
     check(bool(localized), "the rebooted system never relocalized")
@@ -927,7 +1171,7 @@ def phase_reboot(traj, scans, first):
         "modes": [r.mode.name for r in results], "history": [
             (h.mode.name, h.keyframe_id, h.score, h.overlap) for h in backend.history],
         "stage_ms": stats, "knn_launches": launches["knn"],
-        "knn_merge_launches": launches["knn_merge"],
+        "knn_merge_launches": launches["knn_merge"], "projector_launches": launches["projector"],
         "frame_ms_median": float(np.median(np.asarray(times) * 1e3)),
     }
     log("reboot", f"booted in RELOCALIZATION on {backend.db.n_keyframes} keyframes; fed frames "
@@ -997,26 +1241,64 @@ def phase_async(traj, scans, sync):
     gt = np.stack([se3np.pose_between(traj[0], traj[i]) for i in range(n)])
     ate = ate_stats(est, gt).rmse
     check(ate < ATE_LIMIT, f"async map-frame ATE {ate:.4f} m ≥ {ATE_LIMIT} m")
-    check(abs(ate - sync["ate_map_m"]) <= ASYNC_ATE_SLACK,
-          f"async map-frame ATE {ate:.4f} m, the sync run's {sync['ate_map_m']:.4f} m")
+    # A frame takes the latest correction the worker has published, so the
+    # corrections reach the frames as late as the worker lags, which the
+    # host's speed sets: the frames' ATE lies between the sync run's and
+    # odometry's accordingly. What holds whatever the lag: the front end's
+    # odometry is the sync run's, the database after the flush holds the sync
+    # run's keyframe map poses, and every frame's correction is one that the
+    # sync run had published by that frame. A coalesced localization refresh
+    # (possible only after the loop closure) changes what follows it.
+    odom = np.stack([r.odom_pose for r in results])
+    odom_dev = float(np.max(np.abs(odom - np.asarray(sync["odom_poses"]))))
+    check(odom_dev < CPU_AGREE, f"async odometry {odom_dev:.3g} from the sync run's "
+          f"(limit {CPU_AGREE})")
+    sync_corr = np.asarray(sync["odom2map_before_and_after_each_frame"])
+    upto = n if ab.coalesced == 0 else sync["first_loop_frame"]
+    lag, corr_dev = [], []
+    for f in range(upto):
+        corr = se3np.pose_compose(results[f].map_pose, se3np.pose_inverse(odom[f]))
+        dev = np.max(np.abs(sync_corr[:f + 2] - corr), axis=1)  # published by frame f
+        g = int(np.flatnonzero(dev == dev.min())[-1])
+        lag.append(f + 1 - g)
+        corr_dev.append(float(dev[g]))
+    check(max(corr_dev) < CPU_AGREE,
+          f"frame {int(np.argmax(corr_dev))}'s correction is {max(corr_dev):.3g} from every "
+          f"correction the sync run had published by then (limit {CPU_AGREE})")
+    kf_dev = None
+    if ab.coalesced == 0:
+        kf_sync = np.asarray(sync["keyframe_map_poses"])
+        kf = system.keyframe_trajectory()
+        check(kf.shape == kf_sync.shape, f"async stored {len(kf)} keyframes, sync {len(kf_sync)}")
+        kf_dev = float(np.max(np.abs(kf - kf_sync)))
+        check(kf_dev < CPU_AGREE, f"async keyframe map poses {kf_dev:.3g} from the sync run's "
+              f"(limit {CPU_AGREE})")
     per_frame = 2 * 4  # as in phase backend: what the frontend thread launches
-    for name in ("knn", "knn_merge"):  # the rest came from the worker thread
-        check(launches.get(name, 0) > per_frame * n,
+    for name, k in (("knn", per_frame), ("knn_merge", per_frame), ("projector", per_frame // 2)):
+        check(launches.get(name, 0) > k * n,  # the rest came from the worker thread
               f"{name}: {launches.get(name, 0)} launches on the async path, the frontend's "
-              f"frames alone make {per_frame * n}: the worker thread launched none")
+              f"frames alone make {k * n}: the worker thread launched none")
     stats = backend.timer.stats()
     out = {**frame_stats(times, [r.is_keyframe for r in results]),
-           "ate_map_m": ate, "loop_edges": loop_edges, "final_mode": backend.mode.name,
+           "ate_map_m": ate, "ate_odom_m": ate_stats(odom, gt).rmse,
+           "odom_vs_sync_max_abs": odom_dev, "keyframes_vs_sync_max_abs": kf_dev,
+           "corrections_checked": upto, "correction_vs_sync_max_abs": max(corr_dev),
+           "correction_lag_frames": lag, "loop_edges": loop_edges, "final_mode": backend.mode.name,
            "keyframes_stored": int(db.n_keyframes), "dropped": ab.dropped,
            "coalesced": ab.coalesced, "backlog_peak": int(max(backlog)), "flush_ms": flush_ms,
            "solver_runs": dict(backend.solver_runs), "solves": backend.solve_log,
            "stage_ms": stats, "knn_launches": launches["knn"],
-           "knn_merge_launches": launches["knn_merge"]}
+           "knn_merge_launches": launches["knn_merge"], "projector_launches": launches["projector"]}
     ab.close()
     log("async", f"{n} frames, policy coalesce: {db.n_keyframes} keyframes stored, dropped 0, "
         f"coalesced {ab.coalesced}, peak backlog {out['backlog_peak']}, final flush "
         f"{flush_ms:.1f} ms; loop edges {loop_edges}, mode {backend.mode.name}; ATE map frame "
-        f"{ate:.4f} m (sync {sync['ate_map_m']:.4f} m)")
+        f"{ate:.4f} m (sync {sync['ate_map_m']:.4f} m, odometry {out['ate_odom_m']:.4f} m)")
+    log("async", f"against the sync run: odometry max |Δ| {odom_dev:.3g}; keyframe map poses "
+        f"after the flush max |Δ| {kf_dev if kf_dev is None else format(kf_dev, '.3g')}; each of "
+        f"the first {upto} frames' correction within {max(corr_dev):.3g} of one the sync run had "
+        f"published, at most {max(lag)} frames before (median {float(np.median(lag)):g}; "
+        f"frames after the loop closure {lag[sync['first_loop_frame']:][:12]})")
     log("async", "ms/frame sync | async: median "
         f"{sync['frame_ms_median']:.2f} | {out['frame_ms_median']:.2f}, p90 "
         f"{sync['frame_ms_p90']:.2f} | {out['frame_ms_p90']:.2f}, max "
@@ -1093,6 +1375,19 @@ class CityCourse:
                              width=HDL64["width"], elev_min=HDL64["elev_min"],
                              elev_max=HDL64["elev_max"], max_range=80.0, min_range=2.5,
                              noise=0.01, device="cuda")
+
+    def sweep(self, frame):
+        """The motion-blurred HDL-64 sweep that ends at ``frame`` (the static
+        scan at frame 0), without movers, rendered on the card."""
+        from lmsf_slam_tpu_torch.datasets import HDL64, simulate_scan, simulate_scan_moving
+
+        kw = dict(rings=HDL64["rings"], width=HDL64["width"], elev_min=HDL64["elev_min"],
+                  elev_max=HDL64["elev_max"], max_range=80.0, min_range=2.5, noise=0.01,
+                  device="cuda")
+        if frame == 0:
+            return simulate_scan(self.world, self.traj[0], self.rng, **kw)
+        return simulate_scan_moving(self.world, self.traj[frame - 1], self.traj[frame], self.rng,
+                                    **kw)
 
     def gt_in_first_map_frame(self, frames):
         """Ground truth of ``frames`` in the map frame of a session that
@@ -1243,6 +1538,7 @@ def phase_city(course):
                                  os.listdir(payload))),
         "peak_device_bytes": int(peak), "stage_ms": stats,
         "knn_launches": launches["knn"], "knn_merge_launches": launches["knn_merge"],
+        "projector_launches": launches.get("projector", 0),
         "knn_launches_per_frame": CITY_KNN_PER_FRAME,
         "knn_launches_per_backend_keyframe":
             (launches["knn"] - CITY_KNN_PER_FRAME * CITY_FRAMES) / max(n_kf_frames, 1),
@@ -1297,6 +1593,9 @@ def phase_city(course):
         check(launches.get(name, 0) > CITY_KNN_PER_FRAME * CITY_FRAMES,
               f"{name}: {launches.get(name, 0)} launches on the city path, the frames alone make "
               f"{CITY_KNN_PER_FRAME * CITY_FRAMES}")
+    check(out["projector_launches"] > 4 * CITY_FRAMES,  # 4 associations a frame
+          f"projector: {out['projector_launches']} launches on the city path, the frames alone "
+          f"make {4 * CITY_FRAMES}")
     return out, {"system": system}
 
 
@@ -1381,7 +1680,7 @@ def phase_persist(course, holder):
     booted.flush()
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    for name in ("knn", "knn_merge"):
+    for name in ("knn", "knn_merge", "projector"):
         check(launches.get(name, 0) > 0, f"{name} was not launched on the reboot path")
     localized = [k for k, r in enumerate(results) if r.mode is not WorkMode.RELOCALIZATION]
     check(bool(localized), "the system booted from disk never relocalized")
@@ -1413,6 +1712,7 @@ def phase_persist(course, holder):
         "coalesced": booted._async.coalesced, "dropped": booted._async.dropped,
         **frame_stats(times, [r.is_keyframe for r in results]), "stage_ms": stats,
         "knn_launches": launches["knn"], "knn_merge_launches": launches["knn_merge"],
+        "projector_launches": launches["projector"],
     }
     booted._async.close()
     log("persist", f"save of {n_kf} keyframes (memmap payload {out['payload_bytes'] / 2**20:.2f} "
@@ -1461,6 +1761,8 @@ def phase_merge(course, path):
     launches = dict(_build.launches)
     check(res is not None, "no alignment between the sessions")
     check(len(res.matches) >= 3, f"only {len(res.matches)} consistent matches")
+    for name in ("knn", "knn_merge", "projector"):
+        check(launches.get(name, 0) > 0, f"{name} was not launched by align_sessions")
     # session B's map frame starts at the course pose MERGE_START
     truth = se3np.pose_between(course.traj[0], course.traj[MERGE_START])
     d = se3np.pose_between(truth, res.transform)
@@ -1498,7 +1800,8 @@ def phase_merge(course, path):
            "solve_ms": solve_ms, "solve": solve,
            "merged_b_err_rmse_m": float(np.sqrt(np.mean(err_b ** 2))),
            "merged_b_err_max_m": float(err_b.max()),
-           "knn_launches": launches.get("knn", 0), "knn_merge_launches": launches.get("knn_merge", 0)}
+           "knn_launches": launches.get("knn", 0), "knn_merge_launches": launches.get("knn_merge", 0),
+           "projector_launches": launches.get("projector", 0)}
     log("merge", f"second session: frames {MERGE_START}..{MERGE_START + MERGE_FRAMES - 1}, {n_b} "
         f"keyframes; align_sessions {res.n_tried} queries in {align_s:.1f} s → "
         f"{len(res.matches)} consistent matches, transform {err_m:.3f} m / {err_deg:.3f}° from "
@@ -1511,6 +1814,276 @@ def phase_merge(course, path):
         "from the ground truth in the first session's map frame")
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 11: the IMU-aided system on the city course
+# ---------------------------------------------------------------------------
+
+
+def lio_config():
+    """``scripts/evaluate.py::run_city --imu --sync`` at HDL-64 width: the
+    city configuration without the dynamic-object extras, the IMU-aided
+    front end, the backend inline; the submap Schur solve off."""
+    return city_config(extras=False)._replace(use_imu=True, async_backend=False)
+
+
+def course_velocity(course):
+    """The course's velocity at frame 0 in the odometry frame (anchored at
+    the first pose), as ``scripts/evaluate.py`` seeds the filter."""
+    from lmsf_slam_tpu_torch.common import se3np
+
+    traj = course.traj.astype(np.float64)
+    va = se3np.quat_rotate(se3np.quat_conj(traj[0, :4]), (traj[1, 4:7] - traj[0, 4:7]) * 10.0)
+    return va.astype(np.float32)
+
+
+def lio_system(device, course):
+    """A fresh IMU-aided system whose filter starts with the course velocity."""
+    import torch
+
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    system = MultiLidarSystem(lio_config(), device=device)
+    system._lio.eskf = system._lio.eskf._replace(
+        v=torch.as_tensor(course_velocity(course), device=device))
+    return system
+
+
+def imu_args(windows, frame):
+    return {} if frame == 0 else dict(zip(("gyro", "acc", "imu_dts"), windows[frame]))
+
+
+def lio_graph_run(device, windows, priors, va):
+    """``FactorGraphLio`` on ``device`` over IMU windows 1.. with the LIO poses
+    of those frames as priors; the window anchored at frame 0's pose and the
+    course velocity. Returns the (pose, velocity) after each window, the chi2
+    of each solve and the solve times (ms, host clock, ending in the
+    wrapper's read-back)."""
+    import torch
+
+    from lmsf_slam_tpu_torch.backend.lio_graph import FactorGraphLio
+    from lmsf_slam_tpu_torch.estimator import preintegrate
+
+    fg = FactorGraphLio(device=device)
+    fg.poses[0] = priors[0]
+    fg.vels[0] = va
+    fg.priors = [(0, priors[0].copy())]
+    out, chi2, ms = [], [], []
+    for k in range(1, len(priors)):
+        gy, ac, dts = (torch.as_tensor(a, device=device) for a in windows[k])
+        zero = torch.zeros(3, device=device)
+        t0 = time.perf_counter()
+        pre = preintegrate(gy, ac, dts, torch.ones(len(dts), dtype=torch.bool, device=device),
+                           zero, zero)
+        pose, vel = fg.add_scan(pre, priors[k])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(np.concatenate([pose, vel]))
+        chi2.append((float(fg.last_stats.chi2_initial), float(fg.last_stats.chi2_final)))
+    return np.stack(out), chi2, ms, fg.resets
+
+
+def phase_lio(fused_profile):
+    """The IMU-aided system over the first frames of the city course, then
+    the LIO factor graph over its IMU windows (``fused_profile``: phase
+    profile's numbers, printed beside this path's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.datasets import make_city_imu
+    from lmsf_slam_tpu_torch.evaluation import ate_stats
+
+    course = CityCourse()
+    windows = make_city_imu(course.traj)  # 100 Hz, seed 7, the whole course as the reference
+    system = lio_system("cuda", course)
+    lio = system._lio
+    propagate, spans = lio._propagate, []
+
+    def timed_propagate(*args, **kw):  # device span (CUDA events) and host ms, no wait
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        state = propagate(*args, **kw)
+        host = (time.perf_counter() - t0) * 1e3
+        end.record()
+        spans.append((start, end, host))
+        return state
+
+    lio._propagate = timed_propagate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    results, times, kept, profiled = [], [], [], []
+    t_run = time.perf_counter()
+    for i in range(LIO_FRAMES):
+        scan = course.sweep(i)
+        if len(kept) < max(LIO_CPU_FRAMES, 10):
+            kept.append(scan)
+        if i in LIO_PROFILE_FRAMES:  # one frame a trace, left out of the frame times
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                res = system.process(scan, 0.1 * i, **imu_args(windows, i))
+                torch.cuda.synchronize()
+            profiled.append((res.is_keyframe, profile_counts(prof, 1)))
+        else:
+            t0 = time.perf_counter()
+            res = system.process(scan, 0.1 * i, **imu_args(windows, i))
+            times.append(time.perf_counter() - t0)
+        results.append(res)
+    wall = time.perf_counter() - t_run
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    lio._propagate = propagate
+    prop_dev = [s.elapsed_time(e) for s, e, _ in spans]
+    prop_host = [h for _, _, h in spans]
+    backend, db = system.backend, system.backend.db
+
+    est = system.trajectory()
+    odom = np.stack([r.odom_pose for r in results])
+    finite = bool(np.isfinite(est).all() and np.isfinite(odom).all())
+    gt = course.gt_in_first_map_frame(range(LIO_FRAMES))
+    ate_map = ate_stats(est, gt).rmse if finite else float("nan")
+    ate_odom = ate_stats(odom, gt).rmse if finite else float("nan")
+    loops = [h for h in backend.history if h.loop_closed]
+    failures = lio.failures
+    quiet = [c for kf, c in profiled if not kf]  # profiled frames without a keyframe
+    stats = backend.timer.stats()
+    n_kf_frames = sum(r.is_keyframe for r in results)
+    is_kf = [r.is_keyframe for i, r in enumerate(results) if i not in LIO_PROFILE_FRAMES]
+
+    # the filter's own work on one window (propagation, failure gate, pose
+    # correction, the masked selects), traced alone: it must read nothing back
+    from lmsf_slam_tpu_torch.estimator.eskf import _select, eskf_update_pose
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state = lio._propagate(*windows[1])
+        failed = lio._failed(state)
+        state = _select(failed, state._replace(cov=lio._init_cov), state)
+        corrected = eskf_update_pose(state, lio.prev_pose, lio.config.reg_pos_std,
+                                     lio.config.reg_rot_std)
+        _select(failed, state, corrected)
+        torch.cuda.synchronize()
+    filter_counts = profile_counts(prof, 1)
+
+    # the same frames on the CPU (plain k-NN): the kept scans, the same windows
+    cpu = lio_system("cpu", course)
+    t0 = time.perf_counter()
+    odom_cpu = np.stack([cpu.process(kept[i], 0.1 * i, **imu_args(windows, i)).odom_pose
+                         for i in range(LIO_CPU_FRAMES)])  # process copies the scan over
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / LIO_CPU_FRAMES
+    dev_cpu = float(np.max(np.abs(odom_cpu - odom[:LIO_CPU_FRAMES])))
+
+    # a GNSS fix after frame 0 of a second run rides the next keyframe
+    gnss = lio_system("cuda", course)
+    gnss.process(kept[0], 0.0)
+    gnss.process_gnss(np.asarray(LIO_GNSS_LLA))
+    for i in range(1, len(kept)):
+        gnss.process(kept[i], 0.1 * i, **imu_args(windows, i))
+        if gnss.backend.db.n_keyframes >= 2:
+            break
+    gdb = gnss.backend.db
+    gnss_ok = (gdb.n_keyframes >= 2 and bool(gdb.gnss_valid[1]) and not bool(gdb.gnss_valid[0])
+               and float(np.linalg.norm(gdb.gnss_pos[1])) < 1e-3)
+
+    # the LIO factor graph over the course's IMU windows, card and CPU
+    priors = odom[:LIO_GRAPH_WINDOWS + 1].astype(np.float32)
+    va = course_velocity(course)
+    g_card, chi2_card, ms_card, resets = lio_graph_run("cuda", windows, priors, va)
+    g_cpu, _, ms_cpu, _ = lio_graph_run("cpu", windows, priors, va)
+    graph_dev = float(np.max(np.abs(g_card[:, :7] - g_cpu[:, :7])))
+
+    ms = np.asarray(times) * 1e3
+    out = {
+        **frame_stats(times, is_kf),
+        "frames": LIO_FRAMES, "wall_s": wall, "keyframe_frames": int(n_kf_frames),
+        "keyframes_stored": int(db.n_keyframes), "edges": int(db.n_edges),
+        "loops_closed": len(loops),
+        "loop_edges": db.eij[:db.n_edges][db.eloop[:db.n_edges]].tolist(),
+        "first_loop_keyframe": int(loops[0].keyframe_id) if loops else None,
+        "modes": sorted({h.mode.name for h in backend.history}), "final_mode": backend.mode.name,
+        "solver_runs": dict(backend.solver_runs), "solves": backend.solve_log,
+        "ate_map_m": ate_map, "ate_odom_m": ate_odom, "eskf_failures": failures,
+        "odom_poses": odom.tolist(), "map_poses": est.tolist(),
+        "num_matches": [r.num_matches for r in results],
+        "eskf_propagate_device_ms": prop_dev, "eskf_propagate_host_ms": prop_host,
+        "eskf_propagate_device_ms_median": float(np.median(prop_dev)),
+        "eskf_propagate_host_ms_median": float(np.median(prop_host)),
+        "profiled": [{"is_keyframe": kf, **{k: v for k, v in c.items() if k != "rows"},
+                      "top": c["rows"][:8]} for kf, c in profiled],
+        "stage_ms": stats, "peak_device_bytes": int(peak),
+        "knn_launches": launches.get("knn", 0), "knn_merge_launches": launches.get("knn_merge", 0),
+        "projector_launches": launches.get("projector", 0),
+        "cpu_frames": LIO_CPU_FRAMES, "cpu_max_abs_pose_diff": dev_cpu, "cpu_frame_ms": cpu_ms,
+        "gnss_keyframes": int(gdb.n_keyframes), "gnss_prior": gdb.gnss_pos[1].tolist()
+        if gdb.n_keyframes >= 2 else None,
+        "graph_windows": LIO_GRAPH_WINDOWS, "graph_card_vs_cpu_m": graph_dev,
+        "graph_chi2": chi2_card, "graph_resets": resets, "graph_ms_card": ms_card,
+        "graph_ms_cpu": ms_cpu,
+    }
+    q = {k: float(np.mean([c[k] for c in quiet])) if quiet else float("nan")
+         for k in ("device_events", "dtoh", "htod", "waits", "device_ms")}
+    out["profiled_quiet_mean"] = q
+    out["filter_alone"] = {k: v for k, v in filter_counts.items() if k != "rows"}
+    fp = fused_profile
+    log("lio", f"{LIO_FRAMES} frames in {wall:.1f} s ({n_kf_frames} through the gate): "
+        f"{db.n_keyframes} keyframes and {db.n_edges} edges stored, loops closed {len(loops)} "
+        f"(edges {out['loop_edges']}, the first at keyframe {out['first_loop_keyframe']}), modes "
+        f"{out['modes']}, final {backend.mode.name}; solver runs {out['solver_runs']}; ESKF failure "
+        f"resets {failures}")
+    log("lio", f"ATE map frame {ate_map:.4f} m (limit {LIO_ATE_LIMIT}), odometry alone "
+        f"{ate_odom:.4f} m; first {LIO_CPU_FRAMES} frames card vs CPU max |Δpose| {dev_cpu:.3g} "
+        f"(CPU {cpu_ms:.0f} ms a frame); peak device memory {peak / 2**20:.1f} MiB")
+    log("lio", f"ms/frame median {out['frame_ms_median']:.2f}, p90 {out['frame_ms_p90']:.2f}, max "
+        f"{out['frame_ms_max_after_first']:.1f} (first {out['frame_ms_first']:.1f}); without a "
+        f"keyframe median {out['frame_ms_median_no_kf']:.2f}; keyframe frames median "
+        f"{out['frame_ms_median_kf']:.2f}, max {out['frame_ms_max_kf']:.1f}; ESKF propagation a "
+        f"frame: device span median {out['eskf_propagate_device_ms_median']:.3f} ms, host "
+        f"{out['eskf_propagate_host_ms_median']:.3f} ms")
+    log("lio", f"a frame without a keyframe ({len(quiet)} profiled): {q['device_events']:.0f} device "
+        f"events, {q['device_ms']:.3f} ms busy, device-to-host copies {q['dtoh']:g}, host-to-device "
+        f"{q['htod']:g}, host waits {q['waits']:g}; the fused frame (phase profile): "
+        f"{fp.get('device_events_per_frame')} events, {fp.get('dtoh_per_frame')} device-to-host, "
+        f"{fp.get('htod_per_frame')} host-to-device, {fp.get('host_waits_per_frame')} waits; the "
+        f"filter's work on one window alone: "
+        f"{filter_counts['device_events']:.0f} device events, {filter_counts['device_ms']:.3f} ms "
+        f"busy, device-to-host {filter_counts['dtoh']:g}, host-to-device {filter_counts['htod']:g}, "
+        f"host waits {filter_counts['waits']:g}")
+    log("lio", "stage ms (n, mean, median, max): " + stage_line(stats))
+    log("lio", "GN iterations a solve: " + ", ".join(
+        f"{s_['kind']}@{s_['keyframes']}:{s_['iterations']}" for s_ in backend.solve_log))
+    log("lio", f"knn launches {out['knn_launches']} (+{out['knn_merge_launches']} merges): "
+        f"{LIO_KNN_PER_FRAME} a frame and "
+        f"{(out['knn_launches'] - LIO_KNN_PER_FRAME * LIO_FRAMES) / max(n_kf_frames, 1):.1f} more "
+        "a keyframe frame")
+    log("lio", f"GNSS: a fix after frame 0 of a second run, the next keyframe (of "
+        f"{gdb.n_keyframes}) carries {out['gnss_prior']}")
+    log("lio", f"FactorGraphLio over {LIO_GRAPH_WINDOWS} IMU windows ({resets} failure resets): "
+        f"card vs CPU max |Δ| {graph_dev:.3g} (limit {LIO_GRAPH_AGREE}); a solve "
+        f"{np.median(ms_card):.0f} ms on the card, {np.median(ms_cpu):.0f} ms on the CPU; chi2 "
+        + ", ".join(f"{a:.3g}→{b:.3g}" for a, b in chi2_card[:5]) + " …")
+    check(len(results) == LIO_FRAMES and finite, "non-finite pose on the LIO course")
+    check(ate_map < LIO_ATE_LIMIT, f"LIO map-frame ATE {ate_map:.4f} m ≥ {LIO_ATE_LIMIT} m")
+    check(len(loops) >= 1, "no loop closed on the LIO course")
+    check(failures == 0, f"{failures} ESKF failure resets")
+    for name, k in (("knn", LIO_KNN_PER_FRAME), ("knn_merge", LIO_KNN_PER_FRAME),
+                    ("projector", LIO_KNN_PER_FRAME // 2)):
+        check(launches.get(name, 0) > k * LIO_FRAMES,
+              f"{name}: {launches.get(name, 0)} launches on the LIO path, its frames alone make "
+              f"{k * LIO_FRAMES}")
+    check(filter_counts["dtoh"] == 0,
+          f"the filter's work read back {filter_counts['dtoh']:g} times, not none")
+    check(bool(quiet) and all(c["dtoh"] == 1 for c in quiet),
+          f"a LIO frame without a keyframe copied {[c['dtoh'] for c in quiet]} times from the "
+          "card, not once (its read-back)")
+    check(dev_cpu < CPU_AGREE, f"LIO card vs CPU poses differ by {dev_cpu:.3g} over "
+          f"{LIO_CPU_FRAMES} frames (limit {CPU_AGREE})")
+    check(gnss_ok, f"the keyframe after the GNSS fix carries {out['gnss_prior']}, not the ENU "
+          "origin")
+    check(graph_dev < LIO_GRAPH_AGREE, f"FactorGraphLio card vs CPU {graph_dev:.3g} ≥ "
+          f"{LIO_GRAPH_AGREE}")
+    check(np.isfinite(g_card).all() and all(b < a for a, b in chi2_card),
+          "a FactorGraphLio solve did not lower chi2")
+    return out
 
 
 def ptxas_summary(lines):
@@ -1558,13 +2131,18 @@ def main(argv=None):
     from lmsf_slam_tpu_torch.ops import knn as K
 
     t_start = time.perf_counter()
-    _build.build(["knn"])
-    _build.load("knn")
-    info = _build.build_info.get("knn", {"seconds": 0.0, "ptxas": ["already built"]})
-    log("build", f"knn.cu in {info['seconds']:.2f} s; " + ptxas_summary(info["ptxas"]))
+    sources = ["knn", "projector"]
+    _build.build(sources)  # one nvcc a source, all started together
+    info = {}
+    for name in sources:
+        _build.load(name)
+        info[name] = _build.build_info.get(name, {"seconds": 0.0, "ptxas": ["already built"]})
+        log("build", f"{name}.cu in {info[name]['seconds']:.2f} s; "
+            + ptxas_summary(info[name]["ptxas"]))
 
     kernel = phase_kernel(K)
     traj, scans = make_course()
+    proj = phase_projector(scans)
     sl = phase_slice(traj, scans)
     prof = phase_profile(scans, sl["frame_ms_median"])
     loop_traj, loop_scans = make_loop_course()
@@ -1574,6 +2152,7 @@ def main(argv=None):
     asyn = phase_async(loop_traj, loop_scans, be)
     del loop_scans
     city, persist, sessions = city_phases()
+    lio = phase_lio(prof)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1592,7 +2171,8 @@ def main(argv=None):
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": city["knn_launches"],
+        "launches": lio["knn_launches"],
+        "launches_lio": lio["knn_launches"],
         "launches_city": city["knn_launches"],
         "launches_looped_course": be["knn_launches"],
         "launches_front_end_slice": sl["knn_launches"],
@@ -1618,7 +2198,8 @@ def main(argv=None):
         "route": "cuda",
         "source": source,
         "replaces": replaces,
-        "launches": city["knn_merge_launches"],
+        "launches": lio["knn_merge_launches"],
+        "launches_lio": lio["knn_merge_launches"],
         "launches_city": city["knn_merge_launches"],
         "launches_looped_course": be["knn_merge_launches"],
         "launches_front_end_slice": sl["knn_merge_launches"],
@@ -1630,13 +2211,32 @@ def main(argv=None):
         "ms": merge["ms"], "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
         "bound_by": merge["bound_by"], "library_ms": merge["library_ms"],
         "shape": f"{merge['Q']}x{merge['splits']}x{merge['k']} partial lists",
+    }, {
+        "name": "projector",
+        "route": "cuda",
+        "source": "lmsf_slam_tpu_torch/csrc/projector.cu",
+        # no TPU kernel: the reference's jnp.linalg.eigh of the projector
+        "replaces": "lmsf_slam_tpu/ops/registration.py:207",
+        "launches": lio["projector_launches"],
+        "launches_lio": lio["projector_launches"],
+        "launches_city": city["projector_launches"],
+        "launches_looped_course": be["projector_launches"],
+        "launches_front_end_slice": sl["projector_launches"],
+        "launches_reboot": reboot["projector_launches"],
+        "launches_async": asyn["projector_launches"],
+        "launches_reboot_from_disk": persist["projector_launches"],
+        "launches_align_sessions": sessions["projector_launches"],
+        "max_abs_err": proj["max_abs_err"],
+        "ms": proj["ms"], "plain_ms": proj["plain_ms"], "bound_ms": proj["bound_ms"],
+        "bound_by": proj["bound_by"], "library_ms": proj["library_ms"],
+        "shape": "one 6x6 matrix a launch", "call_ms": proj["call_ms"],
     }]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
-            json.dump({"card": smi, "build": info, "kernel": kernel, "slice": sl,
+            json.dump({"card": smi, "build": info, "kernel": kernel, "projector": proj, "slice": sl,
                        "profile": prof, "backend": be, "reboot": reboot, "async": asyn,
-                       "city": city, "persist": persist, "merge": sessions,
+                       "city": city, "persist": persist, "merge": sessions, "lio": lio,
                        "seconds": time.perf_counter() - t_start},
                       fh, indent=1)
     log("done", f"all phases in {time.perf_counter() - t_start:.0f} s")

@@ -13,6 +13,7 @@ went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,6 +48,16 @@ def reset_launches() -> None:
 def count_launch(name: str) -> None:
     with lock:
         launches[name] = launches.get(name, 0) + 1
+
+
+def on_device(dev):
+    """Context that makes ``dev`` the current CUDA device for a launch (none
+    is needed when it already is)."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _nvcc() -> str:

@@ -1,12 +1,12 @@
 """KITTI-00-class simulated course: street-grid city + multi-loop drive.
 
-Counterpart of ``lmsf_slam_tpu/datasets/city.py`` (without ``make_city_imu``,
-which comes with the IMU stack): a city of street blocks (buildings = boxes,
+Counterpart of ``lmsf_slam_tpu/datasets/city.py``: a city of street blocks (buildings = boxes,
 trees/poles = cylinders) hundreds of metres across, and a driving course
 that revisits several streets — so loop closure, relocalization-scale
 descriptor databases and windowed optimization all run at their intended
 size, and the loop detector's own acceptance gates (score ≤ 0.05) apply at
-realistic HDL-64 point density.
+realistic HDL-64 point density; and a 100 Hz IMU stream consistent with the
+course (:func:`make_city_imu`) for the LiDAR-inertial front end.
 
 The world is plain numpy arrays consumed by the ray-cast simulator
 (:mod:`.simulator`), so an HDL-64 scan (64×1800 rays against a few dozen
@@ -260,3 +260,53 @@ def world_with_movers(world: SimWorld, mover_boxes, frame: int) -> SimWorld:
         world.cylinders,
         world.ground_z,
     )
+
+
+def make_city_imu(course: np.ndarray = None, scan_hz: float = 10.0,
+                  imu_hz: float = 100.0, g: float = 9.81,
+                  gyro_noise: float = 1e-3, acc_noise: float = 2e-2,
+                  seed: int = 7):
+    """Synthesize a 100 Hz IMU stream consistent with the course poses.
+
+    Body rates come from the course itself: per scan interval, velocity by central
+    differences of the ground-truth positions, constant linear acceleration
+    (v_{i+1}−v_i)/T, constant yaw rate Δyaw/T — so IMU preintegration over
+    the interval reproduces the interval's pose delta to trapezoid accuracy
+    (the course is planar yaw-only, city driving).
+
+    Returns a list of ``n_frames`` entries; entry ``i`` is the window for
+    the interval ENDING at scan i — ``None`` for i=0, else
+    ``(gyro (M,3), acc (M,3), dts (M,))`` in the BODY frame, gravity
+    included, white noise added — the exact window contract of
+    ``MultiLidarSystem.process``.
+    """
+    course = np.asarray(make_city_course() if course is None else course,
+                        np.float64)
+    n = course.shape[0]
+    T = 1.0 / scan_hz
+    sub = int(round(imu_hz / scan_hz))
+    dt = 1.0 / imu_hz
+    rng = np.random.default_rng(seed)
+    pos = course[:, 4:7]
+    yaw = np.unwrap(2.0 * np.arctan2(course[:, 3], course[:, 0]))
+    # central-difference velocities at scan times (one-sided at the ends)
+    v = np.gradient(pos, T, axis=0)
+    windows = [None]
+    for i in range(1, n):
+        a_w = (v[i] - v[i - 1]) / T  # constant accel over [i-1, i)
+        # exact interval yaw delta → preintegrated rotation reproduces the
+        # course rotation exactly (dyaw is kept for the velocity model)
+        rate = (yaw[i] - yaw[i - 1]) / T
+        gy = np.zeros((sub, 3))
+        ac = np.zeros((sub, 3))
+        for k in range(sub):
+            yy = yaw[i - 1] + rate * (k + 0.5) * dt
+            c, s = np.cos(yy), np.sin(yy)
+            Rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+            gy[k] = Rz.T @ np.array([0.0, 0.0, rate])
+            ac[k] = Rz.T @ (a_w + np.array([0.0, 0.0, g]))
+        gy += rng.normal(0.0, gyro_noise, gy.shape)
+        ac += rng.normal(0.0, acc_noise, ac.shape)
+        windows.append((gy.astype(np.float32), ac.astype(np.float32),
+                        np.full(sub, dt, np.float32)))
+    return windows

@@ -7,8 +7,9 @@ axis-aligned boxes and vertical cylinders, all rays of a scan at once.
 Randomness is explicit: :func:`make_sim_world` draws from a
 ``numpy.random.Generator`` and returns numpy arrays, and
 :func:`simulate_scan` takes its range noise as an array of standard normals
-(or a generator to draw them from). So a test can give this simulator and
-the reference the same world and the same noise.
+(or a generator to draw them from); so does :func:`simulate_scan_moving`,
+the motion-blurred sweep of a moving platform. So a test can give this
+simulator and the reference the same world and the same noise.
 """
 from __future__ import annotations
 
@@ -71,10 +72,11 @@ def make_sim_world(
 
 
 def _ray_ground(o, d, ground_z):
-    """t of each ray's ground intersection (or _BIG). o (3,), d (M,3)."""
+    """t of each ray's ground intersection (or _BIG). d (M,3); o (3,), one
+    origin for every ray, or (M,3), one a ray."""
     dz = d[:, 2]
     ok = torch.abs(dz) > 1e-9
-    t = (ground_z - o[2]) / torch.where(ok, dz, 1e-9)
+    t = (ground_z - o[..., 2]) / torch.where(ok, dz, 1e-9)
     return torch.where(ok & (t > 0), t, _BIG)
 
 
@@ -82,6 +84,7 @@ def _ray_boxes(o, d, bmin, bmax):
     """Min positive t over all boxes (slab test), or _BIG."""
     if bmin.shape[0] == 0:
         return torch.full_like(d[:, 0], _BIG)
+    o = o.reshape(-1, 1, 3)  # (1 | M, 1, 3)
     inv = 1.0 / torch.where(torch.abs(d) > 1e-9, d, 1e-9)  # (M,3)
     t1 = (bmin[None] - o) * inv[:, None, :]  # (M,B,3)
     t2 = (bmax[None] - o) * inv[:, None, :]
@@ -96,7 +99,8 @@ def _ray_cylinders(o, d, cyl):
     if cyl.shape[0] == 0:
         return torch.full_like(d[:, 0], _BIG)
     cx, cy, r, h = cyl[:, 0], cyl[:, 1], cyl[:, 2], cyl[:, 3]
-    ox, oy = o[0] - cx, o[1] - cy  # (C,)
+    o = o.reshape(-1, 3)  # (1 | M, 3)
+    ox, oy = o[:, 0:1] - cx, o[:, 1:2] - cy  # (1 | M, C)
     dx, dy = d[:, 0:1], d[:, 1:2]  # (M,1)
     a = dx * dx + dy * dy
     b = 2.0 * (ox * dx + oy * dy)  # (M,C)
@@ -105,7 +109,7 @@ def _ray_cylinders(o, d, cyl):
     disc = b * b - 4 * a * c
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
     t = (-b - sq) / (2 * a)
-    z = o[2] + t * d[:, 2:3]
+    z = o[:, 2:3] + t * d[:, 2:3]
     hit = (disc > 0) & (t > 0) & (z > 0) & (z < h)
     return torch.amin(torch.where(hit, t, _BIG), dim=1)
 
@@ -162,3 +166,64 @@ def simulate_scan(
     pts = torch.where(ok[:, None], t[:, None] * d_local, 0.0)
     rel_time = ((torch.arange(width, **f32) + 0.5) / width).repeat(rings)[:, None]
     return PointBatch(pts, ok, rel_time)
+
+
+def simulate_scan_moving(
+    world: SimWorld,
+    pose_start,
+    pose_end,
+    noise_normals,
+    rings: int = 16,
+    width: int = 900,
+    elev_min: float = -0.26,
+    elev_max: float = 0.26,
+    max_range: float = 50.0,
+    min_range: float = 1.0,
+    noise: float = 0.01,
+    device="cuda",
+) -> PointBatch:
+    """Motion-blurred scan: each azimuth column is cast from the sensor pose
+    interpolated at its sweep time (constant twist between ``pose_start``
+    and ``pose_end``), and the measured point is expressed in THAT pose's
+    frame — the distortion a spinning lidar on a moving platform produces,
+    which deskew must undo. Returns the points as measured (start-to-end
+    sweep, rel-time attr in [0,1)), laid out as :func:`simulate_scan`'s.
+
+    ``noise_normals``: (rings·width,) standard normals, ring-major, or a
+    ``numpy.random.Generator`` to draw them from.
+    """
+    if isinstance(noise_normals, np.random.Generator):
+        noise_normals = noise_normals.standard_normal(rings * width).astype(np.float32)
+    f32 = dict(dtype=torch.float32, device=device)
+    pose_start = torch.as_tensor(pose_start, **f32)
+    pose_end = torch.as_tensor(pose_end, **f32)
+    elev = torch.linspace(elev_min, elev_max, rings, **f32)
+    az = -math.pi + (torch.arange(width, **f32) + 0.5) * (2 * math.pi / width)
+    rel = (torch.arange(width, **f32) + 0.5) / width  # (W,)
+    xi = se3.pose_log(se3.pose_between(pose_start, pose_end))  # (6,)
+    col_poses = se3.pose_compose(pose_start[None], se3.se3_exp(rel[:, None] * xi[None]))  # (W,7)
+
+    ce, se_ = torch.cos(elev), torch.sin(elev)
+    ca, sa = torch.cos(az), torch.sin(az)
+    d_local = torch.stack(
+        [
+            ce[:, None] * ca[None, :],
+            ce[:, None] * sa[None, :],
+            se_[:, None].expand(rings, width),
+        ],
+        dim=-1,
+    )  # (R,W,3)
+    Rm = se3.quat_to_matrix(col_poses[:, :4])  # (W,3,3)
+    d_world = torch.einsum("wij,rwj->rwi", Rm, d_local).reshape(-1, 3)
+    origins = col_poses[:, 4:].expand(rings, width, 3).reshape(-1, 3)  # one a ray
+
+    t = _ray_ground(origins, d_world, world.ground_z)
+    t = torch.minimum(t, _ray_boxes(
+        origins, d_world, torch.as_tensor(world.boxes_min, **f32),
+        torch.as_tensor(world.boxes_max, **f32)))
+    t = torch.minimum(t, _ray_cylinders(origins, d_world, torch.as_tensor(world.cylinders, **f32)))
+    t = t + noise * torch.as_tensor(noise_normals, **f32).reshape(t.shape)
+    ok = (t > min_range) & (t < max_range)
+    pts = torch.where(ok[:, None], t[:, None] * d_local.reshape(-1, 3), 0.0)
+    rel_attr = rel[None, :].expand(rings, width).reshape(-1, 1)
+    return PointBatch(pts, ok, rel_attr.contiguous())

@@ -21,6 +21,17 @@ localization or a relocalization from the same map::
                   edge_capacity=jax_db.edge_capacity, surf_capacity=jax_db.surf_capacity)
     db = keyframe_db_from_numpy(fields, device="cuda")
 
+``eskf_state_from_numpy``, ``preintegrated_from_numpy``,
+``lio_states_from_numpy`` and ``lio_tracker_from_numpy`` carry the IMU stack
+over: an ``EskfState``, a ``PreintegratedImu``, the ``LioStates`` of a LIO
+factor-graph window, and a whole ``LioTracker`` mid-run (its tracker state,
+filter, ``prev_pose`` and scan count), so that a reference ``LioTracker`` or
+``FactorGraphLio`` continues in the port::
+
+    lio = lio_tracker_from_numpy(config, jax.tree.map(np.asarray, ref.tracker_state),
+                                 jax.tree.map(np.asarray, ref.eskf), ref.prev_pose,
+                                 ref.n_scans, failures=ref.failures, device="cuda")
+
 Nothing of the reference is imported here.
 """
 from __future__ import annotations
@@ -32,7 +43,11 @@ import torch
 
 from .backend.keyframe_db import KeyframeDatabase
 from .backend.lifelong import LifelongBackend, WorkMode
+from .backend.lio_graph import LioStates
 from .common.pointcloud import PointBatch
+from .estimator.eskf import EskfState
+from .estimator.preintegration import PreintegratedImu
+from .lio.lio_tracker import LioConfig, LioTracker
 from .tracker.localmap import LocalMapState
 from .tracker.tracker import TrackerState
 
@@ -139,3 +154,44 @@ def backend_state_from_numpy(backend: LifelongBackend, state) -> LifelongBackend
     backend.last_stamp = float(state["last_stamp"])
     backend._pending = int(state["_pending"])
     return backend
+
+
+def _fields(obj, cls):
+    """The fields of ``cls`` from a mapping or named tuple, every one present."""
+    if not isinstance(obj, Mapping):
+        obj = obj._asdict()
+    missing = set(cls._fields) - set(obj)
+    if missing:
+        raise KeyError(f"{cls.__name__} lacks {sorted(missing)}")
+    return [obj[name] for name in cls._fields]
+
+
+def eskf_state_from_numpy(state, device="cuda") -> EskfState:
+    """This package's ``EskfState`` from the reference's (a mapping or named
+    tuple of float32 arrays: p, v, q, ba, bg, cov)."""
+    return EskfState(*(_tensor(v, device) for v in _fields(state, EskfState)))
+
+
+def preintegrated_from_numpy(pre, device="cuda") -> PreintegratedImu:
+    """This package's ``PreintegratedImu`` from the reference's."""
+    return PreintegratedImu(*(_tensor(v, device) for v in _fields(pre, PreintegratedImu)))
+
+
+def lio_states_from_numpy(states, device="cuda") -> LioStates:
+    """This package's ``LioStates`` (a padded LIO window) from the reference's."""
+    return LioStates(*(_tensor(v, device) for v in _fields(states, LioStates)))
+
+
+def lio_tracker_from_numpy(config: LioConfig, tracker_state, eskf, prev_pose, n_scans: int,
+                           failures: int = 0, device="cuda") -> LioTracker:
+    """A ``LioTracker`` that continues the reference's mid-run: its
+    ``TrackerState`` and ``EskfState`` (numpy leaves, see
+    :func:`tracker_state_from_numpy`), ``prev_pose`` (7,), the number of scans
+    it has processed and its failure count."""
+    lio = LioTracker(config, device=device)
+    lio.tracker_state = tracker_state_from_numpy(tracker_state, device=device)
+    lio.eskf = eskf_state_from_numpy(eskf, device=device)
+    lio.prev_pose = _tensor(np.asarray(prev_pose, np.float32), device)
+    lio.n_scans = int(n_scans)
+    lio.failures = failures
+    return lio

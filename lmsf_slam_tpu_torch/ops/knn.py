@@ -25,7 +25,6 @@ decomposition (slices × lane strides, per-part top-k, lexicographic merge on
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 
 import torch
@@ -213,14 +212,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _on(dev):
-    """Context that makes ``dev`` the current CUDA device for a launch (none
-    is needed when it already is)."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
 def _check_inputs(query_xyz, query_mask, ref_xyz, ref_mask, k):
     dev = query_xyz.device
     if dev.type != "cuda":
@@ -302,7 +293,7 @@ def _launch_partial(dev, Q, N, query_xyz, query_mask, ref_xyz, ref_mask, k, spli
                 torch.empty((Q, splits, k), dtype=torch.int32, device=dev))
         final = (None, None, None)
     lib = _library()
-    with _on(dev):
+    with _build.on_device(dev):
         rc = lib.knn_partial_launch(
             query_xyz.data_ptr(), query_mask.data_ptr(), ref_xyz.data_ptr(),
             ref_mask.data_ptr(), Q, N, k, splits, lanes, slice_len,
@@ -331,7 +322,7 @@ def knn_merge_cuda(part_d, part_i, query_mask, ref_xyz, out):
                          f"{tuple(query_mask.shape)} are not (Q,S,k), (Q,S,k), (Q,)")
     _check_out(out, Q, k, dev)
     lib = _library()
-    with _on(dev):
+    with _build.on_device(dev):
         rc = lib.knn_merge_launch(
             part_d.data_ptr(), part_i.data_ptr(), query_mask.data_ptr(), ref_xyz.data_ptr(),
             Q, S, k, out[0].data_ptr(), out[1].data_ptr(), _ptr(out[2]),

@@ -14,11 +14,11 @@ number of iterations, and both conditionals become a select: on an
 association iteration the new correspondences and projector are computed and
 ``torch.where(do_assoc, new, old)`` keeps the old ones once the solve is done.
 So ``num_matches`` and ``final_cost`` are those of the LAST iteration, as in
-the reference, and the loop never reads a value back to the host (the 6×6
-``torch.linalg.eigh`` of the projector is the one call that synchronises on
-CUDA). Association is the k-NN kernel (:mod:`.knn`), which also writes the
-neighbours' coordinates on the card: two searches per association, five
-associations per call at the default cadence.
+the reference, and the loop never reads a value back to the host. Association
+is the k-NN kernel (:mod:`.knn`), which also writes the neighbours'
+coordinates on the card: two searches per association, five associations per
+call at the default cadence; the 6×6 eigen-analysis of the projector is the
+projector kernel (:mod:`.projector`), once an association.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 
 from ..common import se3
 from ..common.pointcloud import PointBatch
-from . import mat3, neighbors
+from . import mat3, neighbors, projector
 
 
 class RegistrationParams(NamedTuple):
@@ -166,7 +166,9 @@ def _huber_w(r, delta):
 def _degeneracy_projector(H, params, nmatch=None):
     """Eigen-analysis of JᵀJ → (projector onto the well-constrained
     directions, count of constrained directions). Floor: ``degen_rel·nmatch``
-    when configured, else the absolute ``degen_thresh``.
+    when configured, else the absolute ``degen_thresh``
+    (:mod:`.projector`: the kernel on the card, ``torch.linalg.eigh`` on the
+    CPU).
 
     The projector is computed and returned in float64. The solve adds
     κ(I − P) with κ = 1e7, so a float32 P, whose entries carry ~5e-7 of
@@ -177,21 +179,11 @@ def _degeneracy_projector(H, params, nmatch=None):
     bounds how closely any other implementation can follow it.)
 
     A non-finite H (a solve that broke down) gives a NaN projector and 0
-    constrained directions, as the reference's ``eigh`` does;
-    ``torch.linalg.eigh`` would raise on it, so it sees the identity instead.
+    constrained directions, as the reference's ``eigh`` does.
     """
-    H = H.to(torch.float64)
-    eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    finite = torch.all(torch.isfinite(H))
-    eigval, eigvec = torch.linalg.eigh(torch.where(finite, H, eye) + params.damping * eye)
-    if params.degen_rel > 0.0 and nmatch is not None:
-        thresh = params.degen_rel * nmatch.to(torch.float32)
-    else:
-        thresh = torch.tensor(params.degen_thresh, dtype=torch.float32, device=H.device)
-    # the floor is compared in float32, as the reference compares it
-    ok = (eigval.to(torch.float32) > thresh) & finite
-    P = (eigvec * ok[None, :].to(eigvec.dtype)) @ eigvec.T
-    return torch.where(finite, P, torch.nan), torch.sum(ok, dtype=torch.int32)
+    rel = params.degen_rel > 0.0 and nmatch is not None
+    return projector.degeneracy_projector(H, nmatch if rel else None, params.damping,
+                                          params.degen_rel, params.degen_thresh)
 
 
 def _nan_to_num_pb(pb: PointBatch) -> PointBatch:

@@ -1,10 +1,15 @@
 """System orchestration: raw scans in → trajectory + lifelong map out.
 
-Counterpart of ``lmsf_slam_tpu/system/ml_system.py`` on its fused
-single-LiDAR branch (one LiDAR, no IMU,
-``registration_method="feature_based"``): ``preprocess`` →
-``organize_scan`` → ``extract_loam_features`` → ``tracker_step`` in one
-per-frame function (:func:`build_fused_step`), the host-side
+Counterpart of ``lmsf_slam_tpu/system/ml_system.py`` for one LiDAR with
+``registration_method="feature_based"``. Without an IMU the frame is the
+fused branch: ``preprocess`` → ``organize_scan`` →
+``extract_loam_features`` → ``tracker_step`` in one per-frame function
+(:func:`build_fused_step`). With ``use_imu`` the frame takes the
+reference's split path: the same featurize half (:func:`build_featurize`),
+then :class:`..lio.LioTracker` (ESKF propagation over the IMU window, deskew,
+registration with the IMU prediction, the filter's correction), and GNSS
+fixes fuse into the filter through :meth:`MultiLidarSystem.process_gnss`
+and ride the next keyframe as a graph prior. Either way: the host-side
 :class:`KeyframeGate` on the pose read back once per frame, the hand-off of
 keyframes to the lifelong backend (mapping, localization, loop closure,
 relocalization) either inline or, with ``async_backend``, through the worker
@@ -14,8 +19,8 @@ thread of :class:`..backend.async_backend.AsyncBackend`, and a
 
 ``SystemConfig`` carries every field of the reference's, so configurations
 move between the packages unchanged; :class:`MultiLidarSystem` rejects the
-ones whose paths are not ported yet (several LiDARs, the IMU, registration
-methods other than ``feature_based``).
+ones whose paths are not ported yet (several LiDARs, registration methods
+other than ``feature_based``).
 ``build_fused_step`` and :func:`read_frame` remain the front end alone, with
 no backend behind the gate.
 """
@@ -32,6 +37,9 @@ from ..backend.lifelong import BackendOutput, LifelongBackend, LifelongConfig, W
 from ..backend.loop_closure import LoopConfig
 from ..calibration.handeye import HandEyeConfig
 from ..common import se3np
+from ..estimator.eskf import eskf_update_position
+from ..estimator.gnss import lla_to_enu, make_enu_frame
+from ..lio.lio_tracker import LioConfig, LioTracker
 from ..common.pointcloud import PointBatch
 from ..ops import features as F
 from ..ops.preprocess import PreprocessParams, preprocess
@@ -98,7 +106,9 @@ class SystemConfig(NamedTuple):
     # the worker falls behind — "coalesce", "block" or "drop"
     async_backend: bool = False
     async_policy: str = "coalesce"
-    # IMU-aided mode: ESKF-propagated prediction + sweep deskew
+    # IMU-aided mode: ESKF-propagated prediction + sweep deskew; ``process``
+    # then accepts per-frame IMU windows, and GNSS fixes fuse into the
+    # filter via ``process_gnss``
     use_imu: bool = False
     # tracker (capacities derived from ``feature``)
     tracker_window: int = 20
@@ -184,23 +194,16 @@ def tracker_config_for(config: SystemConfig) -> TrackerConfig:
     )
 
 
-def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda"):
-    """(tracker config, per-frame step) of the fused single-LiDAR path.
-
-    ``step(state, xyz, mask, attr, t)`` runs preprocess → organize →
-    features → ``tracker_step`` on ``device`` and returns
-    ``(state, TrackerOutput, edge, surf, grid)``. It launches work and reads
-    nothing back; :func:`read_frame` does the one read per frame.
-    """
-    if config.n_lidars != 1 or config.registration_method != "feature_based":
-        raise ValueError(
-            "the fused step serves one LiDAR with feature_based registration"
-        )
+def build_featurize(config: SystemConfig = SystemConfig(), device="cuda"):
+    """The featurize half of the per-frame step: ``featurize(xyz, mask,
+    attr)`` runs preprocess → organize → LOAM features on ``device`` and
+    returns ``(edge, surf, grid)`` in the sensor frame (the grid is the
+    scan's range image, for carving). It launches work and reads nothing
+    back. Both the fused step and the IMU-aided frame run it."""
     f = config.feature
-    tracker_config = tracker_config_for(config)
     device = torch.device(device)
 
-    def step(state, xyz, mask, attr, t):
+    def featurize(xyz, mask, attr):
         pb = PointBatch(
             torch.as_tensor(xyz, dtype=torch.float32, device=device),
             torch.as_tensor(mask, dtype=torch.bool, device=device),
@@ -220,12 +223,35 @@ def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda"):
             exclude_ground_edges=f.exclude_ground_edges,
             one_sided_occlusion=f.one_sided_occlusion,
         )
+        return feats.edge, feats.surf, grid
+
+    return featurize
+
+
+def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda"):
+    """(tracker config, per-frame step) of the fused single-LiDAR path.
+
+    ``step(state, xyz, mask, attr, t)`` runs preprocess → organize →
+    features (:func:`build_featurize`) → ``tracker_step`` on ``device`` and
+    returns ``(state, TrackerOutput, edge, surf, grid)``. It launches work
+    and reads nothing back; :func:`read_frame` does the one read per frame.
+    """
+    if config.n_lidars != 1 or config.registration_method != "feature_based":
+        raise ValueError(
+            "the fused step serves one LiDAR with feature_based registration"
+        )
+    tracker_config = tracker_config_for(config)
+    device = torch.device(device)
+    featurize = build_featurize(config, device)
+
+    def step(state, xyz, mask, attr, t):
+        edge, surf, grid = featurize(xyz, mask, attr)
         t = torch.as_tensor(t, dtype=torch.float32, device=device)
         state, out = tracker_step(
-            state, feats.edge, feats.surf, t, tracker_config,
+            state, edge, surf, t, tracker_config,
             scan_grid=grid if tracker_config.carve_map else None,
         )
-        return state, out, feats.edge, feats.surf, grid
+        return state, out, edge, surf, grid
 
     return tracker_config, step
 
@@ -263,7 +289,7 @@ def read_frame(out, gate: KeyframeGate, timestamp: float) -> FrameResult:
 
 
 class MultiLidarSystem:
-    """Public end-to-end SLAM system, on the fused single-LiDAR path.
+    """Public end-to-end SLAM system for one LiDAR, with or without an IMU.
 
     ``process(scan, timestamp)`` is the single entry point: a raw organized
     or unorganized scan goes in; the front end featurizes and tracks it;
@@ -284,7 +310,6 @@ class MultiLidarSystem:
             what for bad, what in (
                 (config.n_lidars != 1,
                  "several LiDARs and their calibration (ROADMAP.md section 1, item 13)"),
-                (config.use_imu, "the IMU-aided front end (ROADMAP.md section 1, item 12)"),
                 (config.registration_method != "feature_based",
                  "registration methods other than feature_based (ROADMAP.md section 1, item 14)"),
             ) if bad
@@ -294,8 +319,21 @@ class MultiLidarSystem:
         self.config = config
         self.device = torch.device(device)
         f = config.feature
-        self.tracker_config, self._fused_step = build_fused_step(config, self.device)
+        self.tracker_config = tracker_config_for(config)
         self.tracker_state = tracker_init(self.tracker_config, self.device)
+        # IMU-aided front end: the split path, featurize then LioTracker
+        self._lio = None
+        self._enu = None  # local ENU frame, anchored by the first GNSS fix
+        if not config.use_imu:
+            _, self._fused_step = build_fused_step(config, self.device)
+        else:
+            self._featurize = build_featurize(config, self.device)
+            # under IMU the per-frame prediction is physically grounded, so
+            # the prediction-trust gate is safe and necessary: a coherent
+            # mover drags the registration while the IMU knows better —
+            # reject the dragged solve, coast on the propagated pose
+            self._lio = LioTracker(
+                LioConfig(tracker=self.tracker_config._replace(pred_trust_k=0.3)), self.device)
         if backend is not None:
             if backend.db.device.type != self.device.type:
                 raise ValueError(
@@ -312,9 +350,7 @@ class MultiLidarSystem:
             from ..backend.async_backend import AsyncBackend
 
             self._async = AsyncBackend(self.backend, policy=config.async_policy)
-        # latest GNSS fix, attached to the next keyframe; stays None until
-        # process_gnss is ported with the IMU stack (ROADMAP.md item 12)
-        self._pending_gnss = None
+        self._pending_gnss = None  # latest ENU fix, attached to the next keyframe
         self.gate = KeyframeGate(config.keyframe_trans, config.keyframe_rot, config.keyframe_dt)
         self.results: list[FrameResult] = []
         self.extrinsics: list = []
@@ -322,18 +358,54 @@ class MultiLidarSystem:
 
     # -- per-frame pipeline ---------------------------------------------------
 
-    def process(self, scan, timestamp: float) -> FrameResult:
+    def process_gnss(self, lla, pos_std: float = 0.1):
+        """Fuse a GNSS fix into the IMU filter (requires ``use_imu``) and
+        remember it so the next keyframe carries it as an absolute graph
+        prior. The first fix anchors the local ENU frame (host float64); the
+        ENU frame coincides with the odometry frame only up to the initial
+        pose — production use pairs this with a yaw alignment."""
+        if self._lio is None:
+            raise ValueError("process_gnss requires use_imu=True")
+        if self._enu is None:
+            self._enu = make_enu_frame(np.asarray(lla, np.float64))
+        pos = lla_to_enu(self._enu, lla)
+        self._lio.eskf = eskf_update_position(
+            self._lio.eskf, torch.as_tensor(pos, device=self.device), pos_std)
+        self._pending_gnss = np.asarray(pos, np.float32)
+
+    def process(
+        self, scan, timestamp: float,
+        gyro: Optional[np.ndarray] = None,
+        acc: Optional[np.ndarray] = None,
+        imu_dts: Optional[np.ndarray] = None,
+        wheel_speeds: Optional[np.ndarray] = None,
+    ) -> FrameResult:
         """One frame: featurize → track → keyframe gate → backend.
 
         ``scan``: a PointBatch (on any device; the frame copies it to the
-        system's), or a list holding the one LiDAR's PointBatch."""
+        system's), or a list holding the one LiDAR's PointBatch. With
+        ``use_imu``, pass the IMU window since the previous frame (gyro/acc
+        (M,3), dts (M,), host arrays) for ESKF prediction + sweep deskew;
+        ``wheel_speeds`` ((M,) or scalar) adds the encoder leg. Without
+        ``use_imu`` the IMU arguments are ignored, as in the reference."""
         scans = scan if isinstance(scan, (list, tuple)) else [scan]
         if len(scans) != self.config.n_lidars:
             raise ValueError(f"expected {self.config.n_lidars} scans, got {len(scans)}")
         s0 = scans[0]
-        self.tracker_state, out, edge, surf, scan_grid = self._fused_step(
-            self.tracker_state, s0.xyz, s0.mask, s0.attr, timestamp
-        )
+        if self._lio is not None:
+            edge, surf, scan_grid = self._featurize(s0.xyz, s0.mask, s0.attr)
+            # the LIO tracker registers without the range image: the
+            # odometry map is not carved under IMU, as in the reference; the
+            # backend still gets the grid
+            _, out = self._lio.process_scan(
+                edge, surf, timestamp, gyro=gyro, acc=acc, imu_dts=imu_dts,
+                wheel_speeds=wheel_speeds,
+            )
+            self.tracker_state = self._lio.tracker_state
+        else:
+            self.tracker_state, out, edge, surf, scan_grid = self._fused_step(
+                self.tracker_state, s0.xyz, s0.mask, s0.attr, timestamp
+            )
         return self._finish_frame(timestamp, out, edge, surf, scan_grid)
 
     def _finish_frame(self, timestamp, out, edge, surf, scan_grid) -> FrameResult:

@@ -40,12 +40,14 @@ def test_port_imports_no_jax_at_run_time():
         "import chip_smoke\n"
         f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN_AT_IMPORT!r}))\n"
         "assert not bad, bad\n"
+        f"missing = sorted(set({IMU_MODULES!r}) - {{n[len(p.__name__) + 1:] for n in names}})\n"
+        "assert not missing, missing\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 39  # every module of the slices was imported
+    assert int(out.stdout.split()[-1]) >= 50  # every module of the slices was imported
 
 
 def test_port_source_names_no_jax():
@@ -64,13 +66,21 @@ def test_port_source_names_no_jax():
 
 LIFELONG_MODULES = ("backend.async_backend", "backend.session_merge", "ops.dynamic", "mapping",
                     "mapping.occupancy", "datasets.city")
+# the IMU/GNSS stack, host-only modules included (the reference's gnss, nmea
+# and sync import no JAX either, but importing them runs its __init__)
+IMU_MODULES = ("estimator", "estimator.eskf", "estimator.preintegration", "estimator.gnss",
+               "estimator.nmea", "lio", "lio.lio_tracker", "backend.lio_graph", "common.sync",
+               "datasets.simulator")
+# a kernel's wrapper, which also loads its library with ctypes
+KERNEL_MODULES = ("ops.projector",)
 
 
-@pytest.mark.parametrize("module", LIFELONG_MODULES)
+@pytest.mark.parametrize("module", LIFELONG_MODULES + IMU_MODULES + KERNEL_MODULES)
 def test_lifelong_modules_name_no_jax(module):
-    """Each module of the lifelong deployment: no import statement, at any
-    depth (a function body included), names JAX or the reference package,
-    and what it imports from this package exists."""
+    """Each module of the lifelong deployment, of the IMU/GNSS stack and the
+    projector kernel's wrapper: no
+    import statement, at any depth (a function body included), names JAX or
+    the reference package, and what it imports from this package exists."""
     path = PACKAGE / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = PACKAGE / module.replace(".", "/") / "__init__.py"
@@ -83,14 +93,16 @@ def test_lifelong_modules_name_no_jax(module):
             imported.append(("." * node.level) + (node.module or ""))
     assert imported and not any(_forbidden(n) for n in imported), imported
     roots = {n.split(".")[0] for n in imported if not n.startswith(".")}
-    assert roots <= {"__future__", "contextlib", "threading", "collections", "typing", "math",
-                     "numpy", "torch"}, roots
+    allowed = {"__future__", "contextlib", "threading", "collections", "typing", "math",
+               "numpy", "torch"} | ({"ctypes"} if module in KERNEL_MODULES else set())
+    assert roots <= allowed, roots
 
 
 def test_lifelong_modules_import_no_jax_at_run_time():
     code = (
         "import importlib, sys\n"
-        f"for n in {LIFELONG_MODULES!r}: importlib.import_module('lmsf_slam_tpu_torch.' + n)\n"
+        f"for n in {LIFELONG_MODULES + IMU_MODULES + KERNEL_MODULES!r}: "
+        "importlib.import_module('lmsf_slam_tpu_torch.' + n)\n"
         "from lmsf_slam_tpu_torch.system.config import system_config_from_yaml\n"
         "from lmsf_slam_tpu_torch.system import MultiLidarSystem\n"
         "s = MultiLidarSystem(system_config_from_yaml('config/default.yaml'), device='cpu')\n"

@@ -10,8 +10,11 @@ float64, as in ``tests/test_torch_tracker.py``; pose within 1e-4 m and
 1e-4 rad a frame, ``map_updated`` identical. Keyframe decisions identical.
 
 The slice as a whole is ``MultiLidarSystem.process`` over the closed course
-of ``tests/test_torch_lifelong.py``. The reference side is the reference's
-own ``MultiLidarSystem`` behind the port's tracker (see ``ReferenceSystem``):
+of ``tests/test_torch_lifelong.py``, in files of their own so that parallel
+workers can take them apart: ``tests/test_torch_slice_looped.py`` (the sync
+system, its exports and a reboot) and ``tests/test_torch_slice_lifelong.py``
+(the lifelong deployment). The reference side is the reference's own
+``MultiLidarSystem`` behind the port's tracker (``ReferenceSystem`` here):
 its front end, its ``_finish_frame`` (keyframe gate, float32 lifelong
 backend, FrameResult) as it ships. Decisions are compared exactly; poses at
 the tolerances of that file (1e-4 m while mapping, 5e-2 m once the float32
@@ -47,7 +50,7 @@ from lmsf_slam_tpu_torch.utils.profiling import StageTimer
 from lmsf_slam_tpu_torch.evaluation import metrics as pmetrics
 from lmsf_slam_tpu_torch.system import ml_system as psys
 from lmsf_slam_tpu_torch.tracker import tracker_init
-from tests.test_torch_lifelong import LIFELONG, LOOP, carry_database, loop_course
+from tests.test_torch_lifelong import LIFELONG, LOOP
 from tests.test_torch_tracker import assert_frame, reference_step64, sim_course, widen_state
 
 N_FRAMES = 6
@@ -253,190 +256,17 @@ def assert_same_frames(want, got):
         np.testing.assert_allclose(g.map_pose, w.map_pose, atol=tol, err_msg=str(i))
 
 
-@pytest.fixture(scope="module")
-def looped_run():
-    traj, scans = loop_course()
-    jcfg, pcfg = _system_configs()
-    ref, port = ReferenceSystem(jcfg), MultiLidarSystem(pcfg, device="cpu")
-    _run_both(ref, port, scans, [0.1 * i for i in range(len(scans))])
-    return ref.system, port, traj, scans
-
-
-def test_multilidar_system_matches_reference_over_a_looped_course(looped_run):
-    ref, port, traj, _ = looped_run
-    assert_same_frames(ref.results, port.results)
-    jh, ph = ref.backend.history, port.backend.history
-    assert [(h.mode.name, h.keyframe_id, bool(h.loop_closed)) for h in ph] == [
-        (h.mode.name, h.keyframe_id, bool(h.loop_closed)) for h in jh]
-    assert sum(h.loop_closed for h in ph) >= 1
-    assert port.backend.mode is pll.WorkMode.LOCALIZATION
-    assert port.backend.solver_runs == ref.backend.solver_runs
-    jd, pd = ref.backend.db, port.backend.db
-    assert (pd.n_keyframes, pd.n_edges) == (jd.n_keyframes, jd.n_edges)
-    np.testing.assert_array_equal(pd.eij[:pd.n_edges], jd.eij[:jd.n_edges])  # the loop edge ids
-    np.testing.assert_array_equal(pd.eloop[:pd.n_edges], jd.eloop[:jd.n_edges])
-    np.testing.assert_array_equal(pd.edge_mask[:pd.n_keyframes], jd.edge_mask[:jd.n_keyframes])
-    np.testing.assert_allclose(port.trajectory(), ref.trajectory(), atol=5e-2)
-    np.testing.assert_allclose(port.keyframe_trajectory(), ref.keyframe_trajectory(), atol=5e-3)
-    gt = se3np.pose_between(traj[:1], traj)
-    assert pmetrics.ate_stats(port.trajectory(), gt).rmse < 0.2
-
-
-def test_system_exports(looped_run):
-    ref, port, _, _ = looped_run
-    assert port.trajectory().shape == (len(port.results), 7)
-    pts = port.global_map(voxel_size=0.5)
-    want = ref.global_map(voxel_size=0.5)
-    assert pts.ndim == 2 and pts.shape[1] == 3 and np.isfinite(pts).all()
-    assert abs(pts.shape[0] - want.shape[0]) <= 0.02 * want.shape[0]
-    assert port.flush() is None
-    assert port.calib_status == 2 and port.extrinsics == []
-    empty = MultiLidarSystem(_system_configs()[1], device="cpu")
-    assert empty.trajectory().shape == (0, 7) and empty.global_map().shape == (0, 3)
-    assert empty.force_global_optimize() is None
-    with pytest.raises(ValueError, match="expected 1 scans"):
-        empty.process([None, None], 0.0)
-
-
-def test_reboot_through_the_system_relocalizes_like_the_reference(looped_run):
-    """A second run on the first one's database (the reference's, carried
-    across with ``keyframe_db_from_numpy``): both systems boot in
-    RELOCALIZATION with a fresh tracker, are fed the course from its 12th
-    frame, relocalize on the same frame and report map poses in the first
-    run's frame."""
-    ref, _, traj, scans = looped_run
-    jcfg, pcfg = _system_configs()
-    jb = jll.LifelongBackend(db=ref.backend.db, config=jcfg.lifelong, loop_config=jcfg.loop)
-    pb = pll.LifelongBackend(db=carry_database(ref.backend.db), config=pcfg.lifelong,
-                             loop_config=pcfg.loop)
-    assert pb.mode is pll.WorkMode.RELOCALIZATION
-    ref2, port2 = ReferenceSystem(jcfg, backend=jb), MultiLidarSystem(pcfg, backend=pb, device="cpu")
-    start = 12
-    _run_both(ref2, port2, scans[start:start + 8], [100.0 + 0.1 * i for i in range(8)])
-    assert_same_frames(ref2.system.results, port2.results)
-    modes = [r.mode for r in port2.results]
-    assert modes[0] is pll.WorkMode.LOCALIZATION  # the first keyframe relocalizes
-    gt = se3np.pose_between(traj[0], traj[start:start + 8])
-    err = np.linalg.norm(port2.trajectory()[:, 4:] - gt[:, 4:], axis=1)
-    assert err.max() < 0.5  # the map itself is ~0.15 m ATE at this coarse size
-
-
-class ReferenceLifelongSystem(ReferenceSystem):
-    """``ReferenceSystem`` that also hands the reference's range image to its
-    ``_finish_frame`` (dynamic carving needs it) and drains the worker thread
-    after every frame, so that what a frame publishes does not depend on how
-    the two threads interleave."""
-
-    def __init__(self, jcfg, backend=None):
-        super().__init__(jcfg, backend)
-        f = jcfg.feature
-
-        @jax.jit
-        def front_end(xyz, mask, attr):
-            grid = jf.organize_scan(jp.preprocess(JPB(xyz, mask, attr), jcfg.preprocess),
-                                    rings=f.rings, width=f.width)
-            feats = jf.extract_loam_features(
-                grid, sectors=f.sectors, edges_per_sector=f.edges_per_sector,
-                surfs_per_sector=f.surfs_per_sector)
-            return feats.edge, feats.surf, grid
-
-        self.front_end = front_end
-
-    def process(self, scan, t, frame):
-        edge, surf, grid = self.front_end(*map(jnp.asarray, scan))
-        out = SimpleNamespace(pose=frame.odom_pose, registration=SimpleNamespace(
-            converged=np.bool_(frame.converged), num_matches=np.int32(frame.num_matches)))
-        res = self.system._finish_frame(t, out, edge, surf, grid)
-        self.system.flush()
-        return res
-
-
-def test_lifelong_deployment_matches_reference_over_the_looped_course():
-    """The configuration of the lifelong deployment at the small size:
-    ``async_backend`` (policy ``block``, drained after every frame),
-    ``dynamic_probation`` (probation and map carving in the port's tracker),
-    carving of the 2 nearest stored keyframes, the unsupported-point gate and
-    a 64 × 64 occupancy grid, through both systems. Backend decisions are
-    equal; keyframe poses to 5e-3 m; carved masks may differ in points within
-    rounding of a carving threshold (at most 0.5 % of a keyframe's points);
-    the grids differ in at most 3 % of the touched cells once the float32
-    reference's poses have been optimized. Frame results: what does not
-    depend on the thread interleaving (odometry, gate, convergence) is equal
-    on every frame, the map pose on frames that are not keyframes."""
-    from lmsf_slam_tpu.mapping import OccupancyConfig as JOcc
-    from lmsf_slam_tpu_torch.mapping import OccupancyConfig as POcc
-
-    traj, scans = loop_course()
-    occ = dict(size=64, resolution=1.0, samples_per_ray=24)
-    extra = dict(dynamic_carve_knn=2, dynamic_gate_unsupported=True)
-    kw = dict(async_backend=True, async_policy="block", dynamic_probation=True)
-    jcfg, pcfg = _system_configs(**kw)
-    jcfg = jcfg._replace(lifelong=jcfg.lifelong._replace(occupancy=JOcc(**occ), **extra))
-    pcfg = pcfg._replace(lifelong=pcfg.lifelong._replace(occupancy=POcc(**occ), **extra))
-    ref, port = ReferenceLifelongSystem(jcfg), MultiLidarSystem(pcfg, device="cpu")
-    assert port.tracker_config.carve_map and port.tracker_config.probation
-    carved, carve = [], port.backend.db.carve
-
-    def counting_carve(i, edge_keep, surf_keep):
-        db = port.backend.db
-        before = int(db.edge_mask[i].sum() + db.surf_mask[i].sum())
-        carve(i, edge_keep, surf_keep)
-        carved.append(before - int(db.edge_mask[i].sum() + db.surf_mask[i].sum()))
-
-    port.backend.db.carve = counting_carve
-    for i, scan in enumerate(scans):
-        frame = port.process(_port_scan(scan), 0.1 * i)
-        port.flush()
-        ref.process(scan, 0.1 * i, frame)
-    rs = ref.system
-    assert (port._async.dropped, port._async.coalesced, port._async.backlog) == (0, 0, 0)
-    jh, ph = rs.backend.history, port.backend.history
-    assert [(h.mode.name, h.keyframe_id, bool(h.loop_closed)) for h in ph] == [
-        (h.mode.name, h.keyframe_id, bool(h.loop_closed)) for h in jh]
-    assert sum(h.loop_closed for h in ph) >= 1 and port.backend.mode is pll.WorkMode.LOCALIZATION
-    assert port.backend.solver_runs == rs.backend.solver_runs
-    assert len(port.backend.solve_log) == sum(port.backend.solver_runs.values())
-    for w, g in zip(rs.results, port.results):
-        assert (g.is_keyframe, g.converged, g.num_matches) == (w.is_keyframe, w.converged,
-                                                              w.num_matches)
-        np.testing.assert_array_equal(g.odom_pose, w.odom_pose)
-        if not g.is_keyframe:
-            assert g.mode.name == w.mode.name
-            np.testing.assert_allclose(g.map_pose, w.map_pose, atol=5e-2)
-    jd, pd = rs.backend.db, port.backend.db
-    n = jd.n_keyframes
-    assert (pd.n_keyframes, pd.n_edges) == (n, jd.n_edges)
-    np.testing.assert_array_equal(pd.eij[:pd.n_edges], jd.eij[:jd.n_edges])
-    np.testing.assert_allclose(port.keyframe_trajectory(), rs.keyframe_trajectory(), atol=5e-3)
-    assert len(carved) > n and sum(carved) > 0  # stored keyframes were carved
-    for i in range(n):
-        for name in ("edge_mask", "surf_mask"):
-            a, b = getattr(pd, name)[i], getattr(jd, name)[i]
-            assert (a != b).sum() <= max(1, int(0.005 * a.size)), (i, name)
-    m = pd._mirror_sync()
-    np.testing.assert_array_equal(m["emk"][:n].numpy(), pd.edge_mask[:n])  # mirror = host masks
-    np.testing.assert_array_equal(m["smk"][:n].numpy(), pd.surf_mask[:n])
-    jg, pg = np.asarray(rs.occupancy_grid()), port.occupancy_grid().numpy()
-    assert (pg > 0).any() and (pg < 0).any() and pg.min() >= -4.0 and pg.max() <= 4.0
-    assert (np.abs(pg - jg) > 1e-6).sum() <= 0.03 * (jg != 0).sum()
-    assert "kf_hooks" in port.backend.timer.stats() and "loop_detect" in port.backend.timer.stats()
-    assert set(port.backend.timer.stats()) - set(rs.backend.timer.stats()) <= {"occ_rebuild"}
-    # probation and carving starve the odometry at 16 × 360 (0.35 m here,
-    # against 0.1 m without them): a bound on this size, not on the port
-    gt = se3np.pose_between(traj[:1], traj)
-    assert pmetrics.ate_stats(port.trajectory(), gt).rmse < 0.5
-    port._async.close()
-    rs._async.close()
-
-
 def test_unported_system_paths_are_rejected(tmp_path):
     _, pcfg = _system_configs()
-    for bad, item in ((dict(n_lidars=2), "item 13"), (dict(use_imu=True), "item 12"),
+    for bad, item in ((dict(n_lidars=2), "item 13"),
                       (dict(registration_method="sparse_point_plane_icp"), "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             MultiLidarSystem(pcfg._replace(**bad), device="cpu")
-    # what raised before it was ported now runs: the worker-thread backend,
+    # what raised before it was ported now runs: the IMU-aided front end
+    # (tests/test_torch_lio_system.py drives it), the worker-thread backend,
     # save and load (the database lands on the device that load names)
+    imu = MultiLidarSystem(pcfg._replace(use_imu=True), device="cpu")
+    assert imu._lio is not None and imu._lio.config.tracker.pred_trust_k == 0.3
     system = MultiLidarSystem(pcfg._replace(async_backend=True), device="cpu")
     assert system._async is not None and system._pending_gnss is None
     path = str(tmp_path / "x.npz")
