@@ -27,9 +27,9 @@ The FSM itself is tiny host logic in numpy (:mod:`..common.se3np`); every
 arrow of it bottoms out in device work (registration, alignment evaluation,
 descriptor search, batch pose-graph GN) on the database's device.
 
-Not ported yet, raising ``NotImplementedError`` where it would run: the
-submap Schur solve (``schur_submaps`` on a graph of ``schur_min_vertices`` or
-more) — ROADMAP.md section 1, item 15.
+A full solve of a graph of ``schur_min_vertices`` or more runs the submap
+Schur solve (:mod:`..parallel.schur`) when ``schur_submaps`` is set, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -474,22 +474,36 @@ class LifelongBackend:
         cad = cfg.plane_constraint_every
         plane_ids = np.arange(0, n, cad, dtype=np.int64) if cad > 0 else None
         priors = self._unary_priors(gnss_ids, plane_ids)
-        if full and cfg.schur_submaps > 0 and n >= cfg.schur_min_vertices:
-            raise NotImplementedError(
-                "the submap Schur solve (schur_submaps > 0 on a graph of "
-                "schur_min_vertices or more) is not ported yet (ROADMAP.md "
-                "section 1, item 15)"
+        kind = ("full_schur" if full and cfg.schur_submaps > 0 and n >= cfg.schur_min_vertices
+                else "full_replicated")
+        self.solver_runs[kind] += 1
+        if kind == "full_schur":
+            from ..parallel.schur import optimize_pose_graph_schur
+
+            # the Schur solve expects a dense graph (no vmask): the padded
+            # tail vertices carry no edges; fix them so they drop out of the
+            # variable set, and vertex 0 unless GNSS priors give the gauge
+            fixed_np = np.arange(g.poses.shape[0]) >= n
+            if fixed is None:
+                fixed_np[0] = True
+            poses, stats = optimize_pose_graph_schur(
+                g.poses, g.edges_ij, g.edges_z, g.edges_sqrtw, g.emask,
+                n_submaps=cfg.schur_submaps,
+                fixed=fixed_np,
+                edges_robust=g.erobust,
+                params=cfg.pose_graph,
+                **priors,
             )
-        self.solver_runs["full_replicated"] += 1
-        poses, stats = optimize_pose_graph(
-            g.poses, g.vmask, g.edges_ij, g.edges_z, g.edges_sqrtw, g.emask,
-            fixed=fixed,
-            edges_robust=g.erobust,
-            params=cfg.pose_graph,
-            **priors,
-        )
+        else:
+            poses, stats = optimize_pose_graph(
+                g.poses, g.vmask, g.edges_ij, g.edges_z, g.edges_sqrtw, g.emask,
+                fixed=fixed,
+                edges_robust=g.erobust,
+                params=cfg.pose_graph,
+                **priors,
+            )
         self.db.update_poses(poses.cpu().numpy())
-        self._log_solve("full_replicated", n, stats)
+        self._log_solve(kind, n, stats)
         return stats
 
     def _optimize_window(self, w: int):

@@ -9,9 +9,9 @@ module would run the reference package's ``__init__``):
   with boundary samples interpolated to the exact edges (the IMU window
   contract of ``MultiLidarSystem.process``);
 - :class:`StreamIngest` — facade gluing both onto
-  ``MultiLidarSystem.process`` for one LiDAR: push scans/IMU/GNSS as they
-  arrive, matched frames come out. Several LiDARs wait for the multi-LiDAR
-  system (ROADMAP.md section 1, item 13).
+  ``MultiLidarSystem.process``: push scans/IMU/GNSS as they arrive, matched
+  frames come out (with several LiDARs, the list of matched scans, primary
+  first).
 
 Host-side by design: stream bookkeeping is pointer arithmetic, not math —
 it must not cost device work (the card sees only the matched frames).
@@ -158,10 +158,6 @@ class StreamIngest:
     def __init__(self, system, slop: float = 0.05, queue_size: int = 10):
         self.system = system
         n = system.config.n_lidars
-        if n != 1:
-            raise NotImplementedError(
-                "StreamIngest serves one LiDAR; several wait for the multi-LiDAR system "
-                "(ROADMAP.md section 1, item 13)")
         self._sync = ApproxTimeSync(n, slop=slop, queue_size=queue_size)
         self._imu = ImuWindowBuffer()
         self._last_stamp: Optional[float] = None

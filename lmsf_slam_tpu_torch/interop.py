@@ -32,6 +32,12 @@ filter, ``prev_pose`` and scan count), so that a reference ``LioTracker`` or
                                  jax.tree.map(np.asarray, ref.eskf), ref.prev_pose,
                                  ref.n_scans, failures=ref.failures, device="cuda")
 
+``handeye_state_from_numpy`` carries a hand-eye pair store over, and
+``submap_partition_from_numpy`` a Schur solve's partition (host numpy in both
+packages, so the fields are taken as they are)::
+
+    state = handeye_state_from_numpy(jax.tree.map(np.asarray, ref_state), device="cuda")
+
 Nothing of the reference is imported here.
 """
 from __future__ import annotations
@@ -44,10 +50,12 @@ import torch
 from .backend.keyframe_db import KeyframeDatabase
 from .backend.lifelong import LifelongBackend, WorkMode
 from .backend.lio_graph import LioStates
+from .calibration.handeye import HandEyeState
 from .common.pointcloud import PointBatch
 from .estimator.eskf import EskfState
 from .estimator.preintegration import PreintegratedImu
 from .lio.lio_tracker import LioConfig, LioTracker
+from .parallel.schur import SubmapPartition
 from .tracker.localmap import LocalMapState
 from .tracker.tracker import TrackerState
 
@@ -195,3 +203,16 @@ def lio_tracker_from_numpy(config: LioConfig, tracker_state, eskf, prev_pose, n_
     lio.n_scans = int(n_scans)
     lio.failures = failures
     return lio
+
+
+def handeye_state_from_numpy(state, device="cuda") -> HandEyeState:
+    """This package's ``HandEyeState`` from the reference's (a mapping or
+    named tuple: the pair store, its mask, write index and count)."""
+    return HandEyeState(*(_tensor(v, device) for v in _fields(state, HandEyeState)))
+
+
+def submap_partition_from_numpy(part) -> SubmapPartition:
+    """This package's ``SubmapPartition`` from the reference's: the same
+    host numpy fields, copied."""
+    return SubmapPartition(*(v if isinstance(v, int) else np.array(v)
+                             for v in _fields(part, SubmapPartition)))

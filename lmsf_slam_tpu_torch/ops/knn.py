@@ -86,12 +86,15 @@ def slice_bounds(N: int, splits: int):
 def knn_reference(query_xyz, ref_xyz, ref_mask, k: int):
     """Plain torch candidates: (Q,k) distances (expansion form) and int32
     indices of the k nearest valid references, ascending; INF slots where
-    fewer than k references are valid."""
+    fewer than k references are valid. The (Q,N) matrix is updated in place
+    ((|q|² + |p|²) − 2·q·p, clamped, masked: the same roundings as
+    out-of-place ops, with one (Q,N) buffer besides the product's)."""
     q = query_xyz.to(torch.float32)
     q_norm = torch.sum(q * q, dim=-1, keepdim=True)
     p_norm = torch.sum(ref_xyz * ref_xyz, dim=-1)
-    d = q_norm + p_norm[None, :] - 2.0 * (q @ ref_xyz.T)
-    d = torch.where(ref_mask[None, :], torch.clamp(d, min=0.0), INF)
+    d = q_norm + p_norm[None, :]
+    d.sub_((q @ ref_xyz.T).mul_(2.0))
+    d.clamp_(min=0.0).masked_fill_(~ref_mask[None, :], INF)
     best_d, best_i = torch.topk(d, k, dim=1, largest=False, sorted=True)
     return best_d, best_i.to(torch.int32)
 
@@ -113,8 +116,17 @@ def rescore(q, query_mask, ref_xyz, best_d, best_i):
 def knn_plain(query_xyz, query_mask, ref_xyz, ref_mask, k: int):
     """The plain version of the whole function: :func:`knn_reference`, then
     :func:`rescore`, then index 0 wherever the distance is INF. Taken for CPU
-    tensors, and by comparisons with the kernels."""
-    best_d, best_i = knn_reference(query_xyz, ref_xyz, ref_mask, k)
+    tensors, and by comparisons with the kernels. On the CPU the masked
+    queries' rows are left out of the (Q,N) matrix (their result is INF and
+    index 0 whatever they hold; each row's arithmetic is its own, so the
+    other rows are unchanged); on a card that would cost a host sync."""
+    if query_xyz.is_cuda:
+        best_d, best_i = knn_reference(query_xyz, ref_xyz, ref_mask, k)
+    else:
+        rows = torch.nonzero(query_mask).squeeze(1)
+        best_d = query_xyz.new_full((query_xyz.shape[0], k), INF)
+        best_i = torch.zeros((query_xyz.shape[0], k), dtype=torch.int32)
+        best_d[rows], best_i[rows] = knn_reference(query_xyz[rows], ref_xyz, ref_mask, k)
     d, i = rescore(query_xyz, query_mask, ref_xyz, best_d, best_i)
     return d, torch.where(d < INF, i, 0)
 

@@ -1,12 +1,16 @@
 """System orchestration: raw scans in → trajectory + lifelong map out.
 
-Counterpart of ``lmsf_slam_tpu/system/ml_system.py`` for one LiDAR with
-``registration_method="feature_based"``. Without an IMU the frame is the
-fused branch: ``preprocess`` → ``organize_scan`` →
+Counterpart of ``lmsf_slam_tpu/system/ml_system.py`` with
+``registration_method="feature_based"``. With one LiDAR and no IMU the frame
+is the fused branch: ``preprocess`` → ``organize_scan`` →
 ``extract_loam_features`` → ``tracker_step`` in one per-frame function
-(:func:`build_fused_step`). With ``use_imu`` the frame takes the
-reference's split path: the same featurize half (:func:`build_featurize`),
-then :class:`..lio.LioTracker` (ESKF propagation over the IMU window, deskew,
+(:func:`build_fused_step`). Otherwise the frame takes the reference's split
+path: the featurize half (:func:`build_featurize`) for each LiDAR, then the
+tracker. With several LiDARs the sub scans' extrinsics are calibrated online
+in three phases (hand-eye from per-LiDAR odometry, refinement against the
+primary's local map, then fused tracking of every LiDAR's features moved into
+the primary's frame), or given as ``extrinsics``. With ``use_imu`` the tracker
+is :class:`..lio.LioTracker` (ESKF propagation over the IMU window, deskew,
 registration with the IMU prediction, the filter's correction), and GNSS
 fixes fuse into the filter through :meth:`MultiLidarSystem.process_gnss`
 and ride the next keyframe as a graph prior. Either way: the host-side
@@ -19,8 +23,8 @@ thread of :class:`..backend.async_backend.AsyncBackend`, and a
 
 ``SystemConfig`` carries every field of the reference's, so configurations
 move between the packages unchanged; :class:`MultiLidarSystem` rejects the
-ones whose paths are not ported yet (several LiDARs, registration methods
-other than ``feature_based``).
+one whose path is not ported yet (registration methods other than
+``feature_based``).
 ``build_fused_step`` and :func:`read_frame` remain the front end alone, with
 no backend behind the gate.
 """
@@ -35,15 +39,20 @@ import torch
 from ..backend.keyframe_db import KeyframeDatabase
 from ..backend.lifelong import BackendOutput, LifelongBackend, LifelongConfig, WorkMode
 from ..backend.loop_closure import LoopConfig
-from ..calibration.handeye import HandEyeConfig
+from ..calibration.handeye import (
+    HandEyeConfig,
+    handeye_add_pair,
+    handeye_init,
+    handeye_solve,
+)
 from ..common import se3np
 from ..estimator.eskf import eskf_update_position
 from ..estimator.gnss import lla_to_enu, make_enu_frame
 from ..lio.lio_tracker import LioConfig, LioTracker
-from ..common.pointcloud import PointBatch
+from ..common.pointcloud import PointBatch, concat as pb_concat
 from ..ops import features as F
 from ..ops.preprocess import PreprocessParams, preprocess
-from ..ops.registration import RegistrationParams
+from ..ops.registration import RegistrationParams, register_edge_surf
 from ..tracker.tracker import TrackerConfig, tracker_init, tracker_step
 
 
@@ -142,6 +151,19 @@ class FrameResult(NamedTuple):
     converged: bool  # front-end registration health
     num_matches: int
     calib_status: int = 2  # 0 = hand-eye init, 1 = refining, 2 = calibrated
+
+
+def _average_poses(samples: list) -> np.ndarray:
+    """Robust average of clustered (7,) poses: sign-aligned quaternion mean
+    + component-wise MEDIAN translation — individual refinement samples
+    occasionally land decimeters off (scan-dependent minima), and the median
+    shrugs those off where a mean would drag."""
+    qs = np.stack([s[:4] for s in samples])
+    qs = np.where((qs @ qs[0])[:, None] < 0, -qs, qs)
+    q = qs.mean(axis=0)
+    q = q / max(np.linalg.norm(q), 1e-12)
+    t = np.median(np.stack([s[4:] for s in samples]), axis=0)
+    return np.concatenate([q, t]).astype(np.float32)
 
 
 class KeyframeGate:
@@ -289,13 +311,14 @@ def read_frame(out, gate: KeyframeGate, timestamp: float) -> FrameResult:
 
 
 class MultiLidarSystem:
-    """Public end-to-end SLAM system for one LiDAR, with or without an IMU.
+    """Public end-to-end SLAM system for one LiDAR or several, with or
+    without an IMU.
 
     ``process(scan, timestamp)`` is the single entry point: a raw organized
-    or unorganized scan goes in; the front end featurizes and tracks it;
-    frames passing the keyframe gate feed the lifelong backend (mapping,
-    localization, loop closure, relocalization); a ``FrameResult`` comes out
-    every frame.
+    or unorganized scan (or one a LiDAR, primary first) goes in; the front
+    end featurizes and tracks it; frames passing the keyframe gate feed the
+    lifelong backend (mapping, localization, loop closure, relocalization); a
+    ``FrameResult`` comes out every frame.
     """
 
     def __init__(
@@ -306,28 +329,28 @@ class MultiLidarSystem:
     ):
         """``device`` is where the frame and a backend made here run; a given
         ``backend`` must keep its database on the same device."""
-        unported = [
-            what for bad, what in (
-                (config.n_lidars != 1,
-                 "several LiDARs and their calibration (ROADMAP.md section 1, item 13)"),
-                (config.registration_method != "feature_based",
-                 "registration methods other than feature_based (ROADMAP.md section 1, item 14)"),
-            ) if bad
-        ]
-        if unported:
-            raise NotImplementedError("not ported yet: " + "; ".join(unported))
+        if config.registration_method != "feature_based":
+            raise NotImplementedError(
+                "not ported yet: registration methods other than feature_based "
+                "(ROADMAP.md section 1, item 14)")
         self.config = config
         self.device = torch.device(device)
         f = config.feature
+        n = config.n_lidars
+        # the main tracker is sized for the FUSED feature stream (n lidars);
+        # during calibration only the primary's slice is populated
         self.tracker_config = tracker_config_for(config)
         self.tracker_state = tracker_init(self.tracker_config, self.device)
-        # IMU-aided front end: the split path, featurize then LioTracker
+        # one LiDAR without an IMU: the fused step; otherwise the split path,
+        # featurize each scan, then the tracker (LioTracker under IMU)
         self._lio = None
         self._enu = None  # local ENU frame, anchored by the first GNSS fix
-        if not config.use_imu:
+        self._fused_step = None
+        if n == 1 and not config.use_imu:
             _, self._fused_step = build_fused_step(config, self.device)
         else:
             self._featurize = build_featurize(config, self.device)
+        if config.use_imu:
             # under IMU the per-frame prediction is physically grounded, so
             # the prediction-trust gate is safe and necessary: a coherent
             # mover drags the registration while the IMU knows better —
@@ -342,7 +365,8 @@ class MultiLidarSystem:
             self.backend = backend
         else:
             db = KeyframeDatabase(
-                edge_capacity=f.edge_capacity, surf_capacity=f.surf_capacity, device=self.device
+                edge_capacity=n * f.edge_capacity, surf_capacity=n * f.surf_capacity,
+                device=self.device,
             )
             self.backend = LifelongBackend(db=db, config=config.lifelong, loop_config=config.loop)
         self._async = None
@@ -353,10 +377,117 @@ class MultiLidarSystem:
         self._pending_gnss = None  # latest ENU fix, attached to the next keyframe
         self.gate = KeyframeGate(config.keyframe_trans, config.keyframe_rot, config.keyframe_dt)
         self.results: list[FrameResult] = []
-        self.extrinsics: list = []
-        self.calib_status = 2  # one LiDAR: nothing to calibrate
+
+        # -- multi-lidar calibration state (the 3-phase FSM)
+        if config.extrinsics is not None:
+            if len(config.extrinsics) != n - 1:
+                raise ValueError(f"{n} LiDARs need {n - 1} extrinsics, "
+                                 f"got {len(config.extrinsics)}")
+            self.extrinsics = [np.asarray(e, np.float32) for e in config.extrinsics]
+            self.calib_status = 2
+        elif n == 1:
+            self.extrinsics = []
+            self.calib_status = 2
+        else:
+            self.extrinsics = [None] * (n - 1)
+            self.calib_status = 0
+        if n > 1 and self.calib_status == 0:
+            self._sub_config = TrackerConfig(
+                window=config.tracker_window,
+                edge_capacity=f.edge_capacity,
+                surf_capacity=f.surf_capacity,
+                map_update_trans=config.map_update_trans,
+                map_update_rot=config.map_update_rot,
+                map_update_dt=config.map_update_dt,
+                registration=config.registration,
+            )
+            self._sub_trackers = [tracker_init(self._sub_config, self.device)
+                                  for _ in range(n - 1)]
+            self._handeye = [handeye_init(config.handeye, self.device) for _ in range(n - 1)]
+            # motion anchors: (primary_pose, sub_pose) at the last sampled pair
+            self._anchors = [None] * (n - 1)
+            self._refine_ok = [0] * (n - 1)
+            self._refine_samples = [[] for _ in range(n - 1)]
 
     # -- per-frame pipeline ---------------------------------------------------
+
+    def featurize(self, scan: PointBatch):
+        """Raw scan → (edge, surf, range-image grid) in the sensor frame, on
+        the system's device (the grid rides along so the backend can carve
+        dynamic points with the scan's free space)."""
+        return self._featurize(scan.xyz, scan.mask, scan.attr)
+
+    def _pad_to_fused(self, edge: PointBatch, surf: PointBatch):
+        """Pad single-lidar features to the fused tracker capacity."""
+        n = self.config.n_lidars
+        if n == 1:
+            return edge, surf
+        f = self.config.feature
+        return (
+            pb_concat([edge], capacity=n * f.edge_capacity),
+            pb_concat([surf], capacity=n * f.surf_capacity),
+        )
+
+    def _pose_tensor(self, pose) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
+
+    def _calibration_step(self, feats, pose_p: np.ndarray, timestamp: float):
+        """Phases 0/1 of the extrinsic FSM. Runs AFTER the primary tracker
+        step, so ``pose_p`` is the current-frame primary pose — sub scans and
+        the primary pose must be time-aligned for hand-eye increments. Pose
+        bookkeeping is host numpy (se3np); a sub tracker's pose, a hand-eye
+        solve (its ``eigh``, ``solve`` and ``ok``) and a refinement's result
+        each wait for the card."""
+        cfg = self.config
+        for i, (se_, ss_, _) in enumerate(feats[1:]):
+            if self.calib_status == 0:
+                # phase 0: independent sub odometry + hand-eye accumulation
+                self._sub_trackers[i], sub_out = tracker_step(
+                    self._sub_trackers[i], se_, ss_, timestamp, self._sub_config,
+                )
+                pose_s = sub_out.pose.cpu().numpy()
+                if self._anchors[i] is None:
+                    self._anchors[i] = (pose_p, pose_s)
+                    continue
+                ap, asub = self._anchors[i]
+                inc_p = np.float32(se3np.pose_between(ap, pose_p))
+                inc_s = np.float32(se3np.pose_between(asub, pose_s))
+                ang = float(np.linalg.norm(se3np.so3_log(se3np.pose_quat(inc_p))))
+                if ang > cfg.handeye.min_rot_angle:
+                    self._handeye[i] = handeye_add_pair(
+                        self._handeye[i], self._pose_tensor(inc_p), self._pose_tensor(inc_s),
+                        cfg.handeye,
+                    )
+                    self._anchors[i] = (pose_p, pose_s)
+                    res = handeye_solve(self._handeye[i], cfg.handeye)
+                    if bool(res.ok):
+                        self.extrinsics[i] = res.extrinsic.cpu().numpy()
+            elif self.calib_status == 1 and self._refine_ok[i] < cfg.calib_refine_frames:
+                # phase 1: refine X against the primary local map. Single-
+                # frame refinements scatter by centimeters–decimeters
+                # (scan-dependent minima), so the extrinsic is the running
+                # average of accepted refinements, not the last one.
+                init = se3np.pose_compose(pose_p, self.extrinsics[i])
+                reg = register_edge_surf(
+                    se_, ss_, self.tracker_state.edge_flat, self.tracker_state.surf_flat,
+                    self._pose_tensor(init), cfg.calib_refine_registration,
+                )
+                packed = torch.cat([
+                    reg.pose.to(torch.float32),
+                    reg.converged.to(torch.float32).reshape(1),
+                    reg.n_constrained.to(torch.float32).reshape(1),
+                ]).cpu().numpy()
+                if bool(packed[7]) and int(packed[8]) == 6:
+                    x_new = np.float32(se3np.pose_between(pose_p, packed[:7]))
+                    self._refine_samples[i].append(x_new)
+                    self.extrinsics[i] = _average_poses(self._refine_samples[i])
+                    self._refine_ok[i] += 1
+        if self.calib_status == 0 and all(e is not None for e in self.extrinsics):
+            self.calib_status = 1
+        if self.calib_status == 1 and all(
+            k >= cfg.calib_refine_frames for k in self._refine_ok
+        ):
+            self.calib_status = 2
 
     def process_gnss(self, lla, pos_std: float = 0.1):
         """Fuse a GNSS fix into the IMU filter (requires ``use_imu``) and
@@ -380,20 +511,45 @@ class MultiLidarSystem:
         imu_dts: Optional[np.ndarray] = None,
         wheel_speeds: Optional[np.ndarray] = None,
     ) -> FrameResult:
-        """One frame: featurize → track → keyframe gate → backend.
+        """One frame: featurize → track → (calibrate) → keyframe gate →
+        backend.
 
         ``scan``: a PointBatch (on any device; the frame copies it to the
-        system's), or a list holding the one LiDAR's PointBatch. With
-        ``use_imu``, pass the IMU window since the previous frame (gyro/acc
-        (M,3), dts (M,), host arrays) for ESKF prediction + sweep deskew;
-        ``wheel_speeds`` ((M,) or scalar) adds the encoder leg. Without
-        ``use_imu`` the IMU arguments are ignored, as in the reference."""
+        system's), or a list of PointBatches, one a LiDAR, index 0 = primary.
+        With ``use_imu``, pass the IMU window since the previous frame
+        (gyro/acc (M,3), dts (M,), host arrays) for ESKF prediction + sweep
+        deskew; ``wheel_speeds`` ((M,) or scalar) adds the encoder leg.
+        Without ``use_imu`` the IMU arguments are ignored, as in the
+        reference."""
         scans = scan if isinstance(scan, (list, tuple)) else [scan]
         if len(scans) != self.config.n_lidars:
             raise ValueError(f"expected {self.config.n_lidars} scans, got {len(scans)}")
-        s0 = scans[0]
+        if self._fused_step is not None:
+            # common path: one LiDAR, no IMU
+            s0 = scans[0]
+            self.tracker_state, out, edge, surf, scan_grid = self._fused_step(
+                self.tracker_state, s0.xyz, s0.mask, s0.attr, timestamp
+            )
+            return self._finish_frame(timestamp, out, edge, surf, scan_grid)
+
+        feats = [self.featurize(s) for s in scans]
+        scan_grid = feats[0][2]  # primary scan's range image (for carving)
+        if self.calib_status == 2 and len(feats) > 1:
+            # fused multi-lidar frame: sub features → primary sensor frame
+            edges, surfs = [feats[0][0]], [feats[0][1]]
+            for i, (se_, ss_, _) in enumerate(feats[1:]):
+                x = self._pose_tensor(self.extrinsics[i])
+                edges.append(se_.transform(x))
+                surfs.append(ss_.transform(x))
+            f = self.config.feature
+            n = self.config.n_lidars
+            edge = pb_concat(edges, capacity=n * f.edge_capacity)
+            surf = pb_concat(surfs, capacity=n * f.surf_capacity)
+        else:
+            # calibration phases track the primary alone
+            edge, surf = self._pad_to_fused(feats[0][0], feats[0][1])
+
         if self._lio is not None:
-            edge, surf, scan_grid = self._featurize(s0.xyz, s0.mask, s0.attr)
             # the LIO tracker registers without the range image: the
             # odometry map is not carved under IMU, as in the reference; the
             # backend still gets the grid
@@ -403,16 +559,20 @@ class MultiLidarSystem:
             )
             self.tracker_state = self._lio.tracker_state
         else:
-            self.tracker_state, out, edge, surf, scan_grid = self._fused_step(
-                self.tracker_state, s0.xyz, s0.mask, s0.attr, timestamp
+            self.tracker_state, out = tracker_step(
+                self.tracker_state, edge, surf, timestamp, self.tracker_config,
+                scan_grid=scan_grid if self.tracker_config.carve_map else None,
             )
-        return self._finish_frame(timestamp, out, edge, surf, scan_grid)
+        read = _read_back(out)
+        if self.calib_status < 2:
+            self._calibration_step(feats, read[0], timestamp)
+        return self._finish_frame(timestamp, out, edge, surf, scan_grid, read)
 
-    def _finish_frame(self, timestamp, out, edge, surf, scan_grid) -> FrameResult:
+    def _finish_frame(self, timestamp, out, edge, surf, scan_grid, read=None) -> FrameResult:
         """Keyframe gate → backend hand-off → FrameResult. All per-frame
-        scalars come down in ONE copy before the gate; pose bookkeeping is
-        host numpy (se3np)."""
-        odom_pose, converged, num_matches = _read_back(out)
+        scalars come down in ONE copy before the gate (``read``, when the
+        frame has taken it already); pose bookkeeping is host numpy (se3np)."""
+        odom_pose, converged, num_matches = _read_back(out) if read is None else read
 
         backend_out: Optional[BackendOutput] = None
         is_kf = self.gate.need_update(odom_pose, timestamp)

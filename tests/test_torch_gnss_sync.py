@@ -152,8 +152,30 @@ def test_stream_ingest_matches_reference():
         for name in kp:
             np.testing.assert_array_equal(kp[name], kr[name])
     assert pi.dropped == ji.dropped
-    with pytest.raises(NotImplementedError, match="item 13"):
-        psync.StreamIngest(_Recorder(SimpleNamespace(n_lidars=2, use_imu=False)))
+    # two LiDARs: process gets the list of matched scans, primary first, and
+    # the same IMU windows as the reference's
+    cfg2 = SimpleNamespace(n_lidars=2, use_imu=True)
+    port, ref = _Recorder(cfg2), _Recorder(cfg2)
+    pi, ji = psync.StreamIngest(port, slop=0.02), jsync.StreamIngest(ref, slop=0.02)
+    k = 0
+    for i, ts in enumerate(scan_t):
+        while k < len(t) and t[k] <= ts + 0.01:
+            pi.push_imu(t[k], gyro[k], acc[k])
+            ji.push_imu(t[k], gyro[k], acc[k])
+            k += 1
+        for lidar in ((1, 0) if i % 3 == 0 else (0, 1)):
+            if (i, lidar) == (7, 1):
+                continue  # a dropped sub scan
+            ts_l = ts + (0.004 if lidar else 0.0)
+            assert (pi.push_scan(lidar, ts_l, f"scan{i}.{lidar}")
+                    == ji.push_scan(lidar, ts_l, f"scan{i}.{lidar}"))
+    assert len(port.calls) == len(ref.calls) > 20
+    for (tp, sp, kp), (tr, sr, kr) in zip(port.calls, ref.calls):
+        assert (tp, sp, sorted(kp)) == (tr, sr, sorted(kr))
+        assert isinstance(sp, list) and sp[0].endswith(".0") and sp[1].endswith(".1")
+        for name in kp:
+            np.testing.assert_array_equal(kp[name], kr[name])
+    assert pi.dropped == ji.dropped
     # the N-stream matcher itself is the reference's
     ps_, js_ = psync.ApproxTimeSync(3, slop=0.02, queue_size=5), jsync.ApproxTimeSync(
         3, slop=0.02, queue_size=5)

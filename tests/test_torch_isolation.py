@@ -40,7 +40,7 @@ def test_port_imports_no_jax_at_run_time():
         "import chip_smoke\n"
         f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN_AT_IMPORT!r}))\n"
         "assert not bad, bad\n"
-        f"missing = sorted(set({IMU_MODULES!r}) - {{n[len(p.__name__) + 1:] for n in names}})\n"
+        f"missing = sorted(set({IMU_MODULES + MULTI_MODULES!r}) - {{n[len(p.__name__) + 1:] for n in names}})\n"
         "assert not missing, missing\n"
         "print(len(names))\n"
     )
@@ -73,12 +73,15 @@ IMU_MODULES = ("estimator", "estimator.eskf", "estimator.preintegration", "estim
                "datasets.simulator")
 # a kernel's wrapper, which also loads its library with ctypes
 KERNEL_MODULES = ("ops.projector",)
+# the submap Schur solve and the hand-eye calibration of several LiDARs
+MULTI_MODULES = ("parallel", "parallel.schur", "calibration", "calibration.handeye")
 
 
-@pytest.mark.parametrize("module", LIFELONG_MODULES + IMU_MODULES + KERNEL_MODULES)
+@pytest.mark.parametrize("module",
+                         LIFELONG_MODULES + IMU_MODULES + KERNEL_MODULES + MULTI_MODULES)
 def test_lifelong_modules_name_no_jax(module):
-    """Each module of the lifelong deployment, of the IMU/GNSS stack and the
-    projector kernel's wrapper: no
+    """Each module of the lifelong deployment, of the IMU/GNSS stack, the
+    projector kernel's wrapper, the Schur solve and the hand-eye calibration: no
     import statement, at any depth (a function body included), names JAX or
     the reference package, and what it imports from this package exists."""
     path = PACKAGE / (module.replace(".", "/") + ".py")
@@ -101,7 +104,7 @@ def test_lifelong_modules_name_no_jax(module):
 def test_lifelong_modules_import_no_jax_at_run_time():
     code = (
         "import importlib, sys\n"
-        f"for n in {LIFELONG_MODULES + IMU_MODULES + KERNEL_MODULES!r}: "
+        f"for n in {LIFELONG_MODULES + IMU_MODULES + KERNEL_MODULES + MULTI_MODULES!r}: "
         "importlib.import_module('lmsf_slam_tpu_torch.' + n)\n"
         "from lmsf_slam_tpu_torch.system.config import system_config_from_yaml\n"
         "from lmsf_slam_tpu_torch.system import MultiLidarSystem\n"

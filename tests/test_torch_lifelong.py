@@ -283,9 +283,11 @@ def test_optimize_needs_an_edge_and_force_global_optimize_is_full(mapped):
 
 
 def test_unported_branches_raise(mapped, tmp_path):
-    """What still raises is the Schur solve (item 15). The hooks that raised
-    before this package had them now run: the occupancy grid, carving (only
-    with a range image), ``save`` and ``load``."""
+    """Nothing of the backend raises any more. The hooks that raised before
+    this package had them now run: the occupancy grid, carving (only with a
+    range image), ``save`` and ``load``, and the submap Schur solve of a full
+    solve past ``schur_min_vertices`` (item 15), whose poses are the
+    reference backend's (a 3-vertex graph: to 1e-5)."""
     _, _, _, odom, feats = mapped
     e, s = to_port(feats[0][0]), to_port(feats[0][1])
 
@@ -303,17 +305,25 @@ def test_unported_branches_raise(mapped, tmp_path):
     b = backend(dynamic_carve_knn=3)
     b.add_keyframe(0.0, e, s, odom[0])  # no range image handed over: nothing to carve with
     assert not b.db._dirty_rows
-    b = backend(schur_submaps=4, schur_min_vertices=2)
+    schur = dict(schur_submaps=4, schur_min_vertices=2)
+    b = backend(**schur)
+    ref = jll.LifelongBackend(db=jdb.KeyframeDatabase(**DB),
+                              config=jll.LifelongConfig(**{**LIFELONG, **schur}),
+                              loop_config=jlc.LoopConfig(**LOOP))
     for i in range(3):
         b.add_keyframe(0.1 * i, e, s, odom[i])
-    b.optimize(full=False)  # the Schur solve serves full solves only
-    with pytest.raises(NotImplementedError, match="item 15"):
-        b.optimize(full=True)
+        ref.add_keyframe(0.1 * i, *feats[0], odom[i])
+    for full in (False, True):  # the Schur solve serves full solves only
+        b.optimize(full=full)
+        ref.optimize(full=full)
+    assert b.solver_runs == ref.solver_runs == {"full_schur": 1, "full_replicated": 1,
+                                                "windowed": 0}
+    np.testing.assert_allclose(b.db.map_poses[:3], ref.db.map_poses[:3], atol=1e-5)
     b.save(str(tmp_path / "x.npz"))
     loaded = pll.LifelongBackend.load(str(tmp_path / "x.npz"), device="cpu")
     assert loaded.db.n_keyframes == 3 and loaded.mode is pll.WorkMode.RELOCALIZATION
-    assert [s_["kind"] for s_ in b.solve_log] == ["full_replicated"]
-    assert b.solve_log[0]["iterations"] >= 1 and b.solve_log[0]["vertices"] == 3
+    assert [s_["kind"] for s_ in b.solve_log] == ["full_replicated", "full_schur"]
+    assert all(s_["iterations"] >= 1 and s_["vertices"] == 3 for s_ in b.solve_log)
 
 
 def test_unsupported_point_gate_raises_on_map_update(mapped):

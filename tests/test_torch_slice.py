@@ -258,13 +258,21 @@ def assert_same_frames(want, got):
 
 def test_unported_system_paths_are_rejected(tmp_path):
     _, pcfg = _system_configs()
-    for bad, item in ((dict(n_lidars=2), "item 13"),
-                      (dict(registration_method="sparse_point_plane_icp"), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            MultiLidarSystem(pcfg._replace(**bad), device="cpu")
-    # what raised before it was ported now runs: the IMU-aided front end
-    # (tests/test_torch_lio_system.py drives it), the worker-thread backend,
-    # save and load (the database lands on the device that load names)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        MultiLidarSystem(pcfg._replace(registration_method="sparse_point_plane_icp"),
+                         device="cpu")
+    # what raised before it was ported now runs: several LiDARs
+    # (tests/test_torch_multilidar.py drives them), the IMU-aided front end
+    # (tests/test_torch_lio_system.py), the worker-thread backend, save and
+    # load (the database lands on the device that load names)
+    f = pcfg.feature
+    dual = MultiLidarSystem(pcfg._replace(n_lidars=2), device="cpu")
+    assert dual.calib_status == 0 and dual.extrinsics == [None] and dual._fused_step is None
+    assert (dual.tracker_config.surf_capacity, dual.backend.db.surf_capacity,
+            dual._sub_config.surf_capacity) == (2 * f.surf_capacity, 2 * f.surf_capacity,
+                                                f.surf_capacity)
+    with pytest.raises(ValueError, match="extrinsics"):
+        MultiLidarSystem(pcfg._replace(n_lidars=3, extrinsics=(np.eye(1),)), device="cpu")
     imu = MultiLidarSystem(pcfg._replace(use_imu=True), device="cpu")
     assert imu._lio is not None and imu._lio.config.tracker.pred_trust_k == 0.3
     system = MultiLidarSystem(pcfg._replace(async_backend=True), device="cpu")
