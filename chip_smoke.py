@@ -27,16 +27,23 @@ Phases, one line each:
              (a yardstick the port never calls) with CUDA events, beside the
              bound and the time of an empty launch;
 2b. projector — hold the degeneracy projector kernel (``projector_cuda``:
-             cyclic Jacobi of the registration's 6×6 normal matrix in float64)
-             against its plain version (``projector_plain``, through
-             ``torch.linalg.eigh``) on the card: at the normal matrices of
-             every association of fused frames 1 and 2, one a launch as the path
-             launches it, at corner cases (non-finite, a corridor with one
-             direction under the floor, isotropic, the absolute floor, zero)
-             and over a batch of random normal matrices: equal counts of
-             constrained directions, projectors within 1e-9. Then time it
-             beside ``torch.linalg.eigh`` alone, the plain version and the
-             bound;
+             a screen that proves every eigenvalue of the registration's 6×6
+             normal matrix above the floor, else a warp-parallel round-robin
+             Jacobi in float64) against its plain version
+             (``projector_plain``, through ``torch.linalg.eigh``) on the card:
+             at the normal matrices of every association of fused frames 1
+             and 2, one a launch as the path launches it, at corner cases
+             (non-finite, a corridor with one direction under the floor,
+             isotropic, the absolute floor, zero), at a boundary batch
+             (diagonal matrices whose smallest eigenvalue lies at, just under
+             and just over the float32 rounding midpoint above the floor) and
+             over a batch of random normal matrices: equal counts of
+             constrained directions, projectors within 1e-9; the kernel's
+             screen decisions and sweeps equal to its CPU model's
+             (``projector_jacobi_plain``). Then time it on a screened path
+             matrix, on the corridor (the Jacobi path) and on the batch beside
+             ``torch.linalg.eigh`` alone, the plain version, the bound and an
+             empty launch;
 3. slice   — 60 frames of a simulated VLP-16 course through
              ``build_fused_step(SystemConfig(), "cuda")`` and the keyframe
              gate at the default widths, one read-back per frame; checks the
@@ -163,10 +170,12 @@ Phases, one line each:
              copies and host waits a frame for each calibration phase and
              for fused frames.
 
-Temporary files go under ``build/chip_smoke_tmp`` and are removed. Then a
-line with each phase's wall time, the card's name and power limit, one JSON
-line of kernel numbers, and the result line ``{"ok": true, "device": {...}}``
-last.
+After each phase a line says how many of its projector matrices took the
+Jacobi path (``JacobiTally``: the kernel's sweeps, kept on the card and read
+once at the phase's end). Temporary files go under ``build/chip_smoke_tmp``
+and are removed. Then a line with each phase's wall time, the card's name
+and power limit, one JSON line of kernel numbers, and the result line
+``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
@@ -197,12 +206,24 @@ KNN_PER_FRAME = 10  # 5 associations × (edge + surf) at the default cadence
 PROJECTOR_PER_FRAME = 5  # one degeneracy projector an association
 PROJECTOR_AGREE = 1e-9  # projector entries, kernel vs torch.linalg.eigh (both float64)
 PROJECTOR_BATCH = 4096  # random normal matrices compared in one launch
+# the boundary batch: one launch a floor and an offset of the smallest
+# eigenvalue from the float32 rounding midpoint above the floor
+PROJECTOR_FLOORS = ("relative", "absolute", "no matches")
+PROJECTOR_OFFSETS = ("at", "under", "over")
+PROJECTOR_BOUNDARY = [f"{f} floor, {o} the midpoint" for f in PROJECTOR_FLOORS
+                      for o in PROJECTOR_OFFSETS]
+# which of the batch's five matrices the screen passes: the two with an
+# eigenvalue at the midpoint no, the two clear of it yes, the non-finite no
+PROJECTOR_BOUNDARY_SCREENED = (False, False, True, True, False)
 
 # What the profile phase read on the earlier one-thread-a-query kernel, whose
 # wrapper rescored and sorted with torch ops (NVIDIA H100 80GB HBM3, 700 W),
 # printed beside this run's numbers.
 EARLIER_KNN_MS_PER_FRAME = 4.78
 EARLIER_EVENTS_PER_FRAME = 6722
+# and on the earlier projector kernel, one thread a matrix and cyclic Jacobi
+# (the same card)
+EARLIER_PROJECTOR_MS_PER_FRAME = 0.1316
 
 
 # phase backend: the looped course and its limits
@@ -644,16 +665,76 @@ def phase_kernel(K):
 # ---------------------------------------------------------------------------
 
 
-def projector_bound_ms(B, sweeps_total):
-    """Least time on the card: the larger of the FP64 work these inputs need
-    (81 operations a Jacobi rotation, 15 pair tests a sweep, the sweeps each
-    matrix took; 432 a projector) and the bytes (H and the match count read
-    once, P and the count written once)."""
-    ops = 81.0 * 15 * sweeps_total + 432.0 * B
+# FP64 operations the function needs for one matrix: proving every
+# eigenvalue above the floor (‖A‖∞: 36 additions and 6 maxima, the margin: 4,
+# the LDLᵀ of a 6x6 matrix: 97), or else a 6x6 symmetric eigendecomposition
+# (9n³, Golub & Van Loan §8.3) and the projector from it (432)
+PROJECTOR_SCREEN_OPS = 143
+PROJECTOR_EIGH_OPS = 9 * 6 ** 3 + 432
+
+
+def projector_bound_ms(B, screened):
+    """Least time on the card: the larger of the FP64 work the function
+    needs on these inputs (the proof for the ``screened`` matrices, an
+    eigendecomposition and P for the others; not the algorithm's sweeps) and
+    the bytes (H and the match count read once, P and the count written
+    once)."""
+    ops = PROJECTOR_SCREEN_OPS * screened + PROJECTOR_EIGH_OPS * (B - screened)
     nbytes = B * (36 * 4 + 4 + 36 * 8 + 4)
     t_ops = ops / PEAK_FP64_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def projector_boundary_cases(device):
+    """The boundary batch: {name: (H (5, 6, 6) float32, nmatch (5,) int32 or
+    None, params)}, one launch for each floor (relative: 0.01 · 777 matches,
+    whose float32 has an odd last bit, so a tie rounds up; absolute: 100,
+    even, a tie rounds down; no matches: 0) and each place of the smallest
+    eigenvalue: at the float64 midpoint between the floor and the next float32
+    above it, 2^-21 of a float32 step under it, or over it. The matrices are
+    diagonal, so their eigenvalues are exact: h + damping with h the floor
+    itself and a dyadic damping of half a step (± 2^-21 of a step). Of the
+    five matrices, 0 has the other eigenvalues at 1000 + 4·floor, 1 one of
+    them at 1e30 (where the screen's margin is large), 2 all of them clear of
+    the floor, 3 clear with a norm of 1e12, 4 is 2 with an infinite entry."""
+    import torch
+
+    from lmsf_slam_tpu_torch.ops.registration import RegistrationParams
+
+    base = RegistrationParams()
+    cases = {}
+    for floor in PROJECTOR_FLOORS:
+        n = {"relative": 777, "absolute": None, "no matches": 0}[floor]
+        t = np.float32(base.degen_thresh) if n is None else (
+            np.float32(base.degen_rel) * np.float32(n))
+        step = float(np.nextafter(t, np.float32(np.inf))) - float(t)
+        high = 1000.0 + 4.0 * float(t)
+        diags = [[t] + [high + k for k in range(5)],
+                 [t] + [high + k for k in range(4)] + [1e30],
+                 [high + k for k in range(6)],
+                 [high + k for k in range(5)] + [1e12],
+                 [high + k for k in range(6)]]
+        H = torch.diag_embed(torch.tensor(np.asarray(diags, dtype=np.float32), device=device))
+        H[4, 0, 3] = float("inf")
+        nm = None if n is None else torch.full((5,), n, dtype=torch.int32, device=device)
+        for offset, sign in zip(PROJECTOR_OFFSETS, (0, -1, 1)):
+            damping = step / 2 + sign * step * 2.0 ** -21
+            cases[f"{floor} floor, {offset} the midpoint"] = (H, nm, base._replace(damping=damping))
+    return cases
+
+
+def projector_exact_count(H, nmatch, params):
+    """Directions above the floor of a diagonal H, from its exact eigenvalues
+    h_ii + damping; 0 where H is not finite."""
+    import torch
+
+    lam = torch.diagonal(H, dim1=-2, dim2=-1).to(torch.float64) + params.damping
+    floor = (torch.full(lam.shape[:-1], params.degen_thresh, dtype=torch.float32, device=H.device)
+             if nmatch is None else params.degen_rel * nmatch.to(torch.float32))
+    finite = torch.all(torch.isfinite(H), dim=(-2, -1))
+    ok = (lam.to(torch.float32) > floor[..., None]) & finite[..., None]
+    return torch.sum(ok, dim=-1, dtype=torch.int32)
 
 
 def capture_normal_matrices(scans, frames=2):
@@ -684,17 +765,27 @@ def capture_normal_matrices(scans, frames=2):
     return captured[PROJECTOR_PER_FRAME:], cfg.registration
 
 
-def compare_projector(PJ, H, nmatch, params):
+def compare_projector(PJ, H, nmatch, params, plain_on_cpu=False):
     """Kernel against ``projector_plain`` (``torch.linalg.eigh``) on the card:
     the same count of directions above the floor everywhere, NaN where H is
     not finite, and the projectors within PROJECTOR_AGREE (float64 Jacobi and
     cuSOLVER's decomposition agree to a few 1e-15 relative to the largest
-    eigenvalue; a projector's entries are O(1)). Returns (max |ΔP|, sweeps)."""
+    eigenvalue; a projector's entries are O(1)); P = I exactly where the
+    screen passed. Then against its CPU model (``projector_jacobi_plain``),
+    which repeats its arithmetic operation for operation: the same screen
+    decisions and sweeps. Returns (max |ΔP|, sweeps, screened), the last two
+    flat on the CPU. ``plain_on_cpu`` runs the plain version on the CPU
+    (LAPACK), for inputs whose eigenvalues sit on a float32 rounding tie,
+    where cuSOLVER's last bit decides the count."""
     import torch
 
     args = (params.damping, params.degen_rel, params.degen_thresh)
     P_k, n_k, sw = PJ.projector_cuda(H, nmatch, *args, sweeps=True)
-    P_r, n_r = PJ.projector_plain(H, nmatch, *args)
+    if plain_on_cpu:
+        P_r, n_r = (x.to(H.device) for x in PJ.projector_plain(
+            H.cpu(), None if nmatch is None else nmatch.cpu(), *args))
+    else:
+        P_r, n_r = PJ.projector_plain(H, nmatch, *args)
     torch.cuda.synchronize()
     check(P_k.dtype == torch.float64 and P_k.shape == P_r.shape, "projector output shape or type")
     check(torch.equal(n_k, n_r), f"projector counts differ: kernel {n_k.flatten()[:8].tolist()}, "
@@ -704,17 +795,99 @@ def compare_projector(PJ, H, nmatch, params):
     err = float(torch.max(torch.where(nan_r, 0.0, torch.abs(P_k - P_r))))
     check(err <= PROJECTOR_AGREE, f"projector differs from the plain version by {err:.3g} "
           f"(limit {PROJECTOR_AGREE})")
-    return err, sw
+    Hc = H.cpu().reshape(-1, 6, 6)
+    nc = None if nmatch is None else nmatch.cpu().reshape(-1)
+    _, n_m, sw_m = PJ.projector_jacobi_plain(Hc, nc, *args)
+    screened = PJ.projector_screen_plain(Hc, nc, *args)
+    sw = sw.cpu().reshape(-1)
+    check(torch.equal(n_k.cpu().reshape(-1), n_m), "projector counts differ from the CPU model's")
+    check(torch.equal(sw, sw_m), f"projector sweeps differ from the CPU model's: kernel "
+          f"{sw[:8].tolist()}, model {sw_m[:8].tolist()}")
+    eye = torch.eye(6, dtype=torch.float64)
+    check(bool(torch.all(P_k.cpu().reshape(-1, 6, 6)[screened] == eye)),
+          "a screened matrix's projector is not the identity")
+    return err, sw, screened
+
+
+class JacobiTally:
+    """Which of a phase's projector matrices took the Jacobi path. While
+    installed, ``degeneracy_projector`` asks the kernel for its sweeps on
+    CUDA tensors and keeps them on the card; :meth:`counts` reads them once,
+    at the end of the phase. It adds no launch and no read-back to the
+    frames. A matrix the screen declined that is diagonal already takes 0
+    sweeps and is counted with the screened ones."""
+
+    def __init__(self):
+        from lmsf_slam_tpu_torch.ops import projector as PJ
+
+        self.PJ, self.real, self.sweeps = PJ, PJ.degeneracy_projector, []
+
+    def __enter__(self):
+        def tallied(H, nmatch, *args):
+            if H.device.type == "cpu":
+                return self.real(H, nmatch, *args)
+            P, n_con, sw = self.PJ.projector_cuda(H, nmatch, *args, sweeps=True)
+            self.sweeps.append(sw.reshape(-1))
+            return P, n_con
+
+        self.PJ.degeneracy_projector = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.PJ.degeneracy_projector = self.real
+
+    def counts(self):
+        """{matrices, jacobi (took at least one sweep), sweeps (sum),
+        sweeps_max} over the phase."""
+        import torch
+
+        if not self.sweeps:
+            return {"matrices": 0, "jacobi": 0, "sweeps": 0, "sweeps_max": 0}
+        torch.cuda.synchronize()
+        sw = torch.cat(self.sweeps).cpu()
+        return {"matrices": sw.numel(), "jacobi": int((sw > 0).sum()), "sweeps": int(sw.sum()),
+                "sweeps_max": int(sw.max())}
+
+
+def time_projector(PJ, H, m, params, sweeps, screened, empty_ms):
+    """Kernel, plain version and ``torch.linalg.eigh`` alone on the same
+    inputs, in turns, beside the bound and an empty launch."""
+    import torch
+
+    args = (params.damping, params.degen_rel, params.degen_thresh)
+    eye = torch.eye(6, dtype=torch.float64, device=H.device)
+    A = H.to(torch.float64) + params.damping * eye
+
+    def kern():
+        return PJ.projector_cuda(H, m, *args)
+
+    def plain():
+        return PJ.projector_plain(H, m, *args)
+
+    def lib():
+        return torch.linalg.eigh(A)
+
+    B = H.numel() // 36
+    iters = 100 if B == 1 else 20
+    row = {"B": B, "sweeps_max": int(sweeps.max()), "screened": int(screened.sum())}
+    p1, k1, l1, k2, p2 = (cuda_ms(f, iters) for f in (plain, kern, lib, kern, plain))
+    bound, by = projector_bound_ms(B, int(screened.sum()))
+    row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=l1, bound_ms=bound,
+               bound_by=by, empty_launch_ms=empty_ms, call_ms=cuda_ms(kern, iters, queued=False))
+    return row
 
 
 def phase_projector(scans):
     """The projector kernel (``projector_cuda``) against ``projector_plain``
-    on the card: at the registration's own normal matrices from fused frames
-    1 and 2, at corner cases, and over a batch of random normal matrices; then
-    timed at the path's shape (one matrix a launch) beside
-    ``torch.linalg.eigh`` alone, the plain version and the bound."""
+    on the card and against its CPU model: at the registration's own normal
+    matrices from fused frames 1 and 2, at corner cases, at the boundary
+    batch, and over a batch of random normal matrices; then timed on a
+    screened path matrix (one a launch), on the corridor (the Jacobi path)
+    and on the batch beside ``torch.linalg.eigh`` alone, the plain version,
+    the bound and an empty launch."""
     import torch
 
+    from lmsf_slam_tpu_torch.ops import knn as K
     from lmsf_slam_tpu_torch.ops import projector as PJ
 
     dev = torch.device("cuda")
@@ -722,18 +895,25 @@ def phase_projector(scans):
     check(len(captured) == 2 * PROJECTOR_PER_FRAME,
           f"captured {len(captured)} normal matrices from 2 frames, expected "
           f"{2 * PROJECTOR_PER_FRAME}")
-    rows, errs, sweeps = {}, [], []
+    rows, errs, sweeps, screened = {}, [], [], []
     for H, nmatch in captured:  # one matrix a launch, as the path launches
-        err, sw = compare_projector(PJ, H, nmatch, params)
+        err, sw, scr = compare_projector(PJ, H, nmatch, params)
         errs.append(err)
-        sweeps.append(int(sw))
+        sweeps.append(int(sw[0]))
+        screened.append(bool(scr[0]))
+    # the Jacobi path on the same matrices: the sweeps the screen saves
+    jacobi_sweeps = [int(PJ.projector_jacobi_plain(H.cpu()[None], m.cpu()[None], params.damping,
+                                                   params.degen_rel, params.degen_thresh,
+                                                   screen=False)[2][0]) for H, m in captured]
     n_con = [int(PJ.projector_cuda(H, m, params.damping, params.degen_rel,
                                    params.degen_thresh)[1]) for H, m in captured]
     rows["frames"] = {"matrices": len(captured), "max_abs_err": max(errs), "sweeps": sweeps,
-                      "n_constrained": n_con}
+                      "n_constrained": n_con, "screened": sum(screened),
+                      "jacobi_sweeps_without_screen": jacobi_sweeps}
     log("projector", f"{len(captured)} normal matrices of fused frames 1 and 2, one a launch: equal "
-        f"counts ({n_con}), max |ΔP| {max(errs):.3g} (limit {PROJECTOR_AGREE}); Jacobi sweeps "
-        f"{sweeps}")
+        f"counts ({n_con}), max |ΔP| {max(errs):.3g} (limit {PROJECTOR_AGREE}); "
+        f"{sum(screened)} of {len(captured)} screened (P = I); kernel sweeps {sweeps}, equal to the "
+        f"CPU model's; without the screen Jacobi would take {jacobi_sweeps}")
 
     g = np.random.default_rng(11)
     H0, m0 = captured[0]
@@ -749,46 +929,72 @@ def phase_projector(scans):
         "zero": (torch.zeros((6, 6), device=dev), m0),
     }
     for name, (H, m) in cases.items():
-        err, sw = compare_projector(PJ, H, m, params)
-        rows[name] = {"max_abs_err": err, "sweeps": int(sw)}
+        err, sw, scr = compare_projector(PJ, H, m, params)
+        rows[name] = {"max_abs_err": err, "sweeps": int(sw[0]), "screened": bool(scr[0])}
+        errs.append(err)
+    boundary, eigh_off = projector_boundary_cases(dev), []
+    for name, (H, m, p) in boundary.items():
+        # the eigenvalues are the diagonal, exactly: the plain version on the
+        # CPU and the exact count, not cuSOLVER's rounding at the tie
+        err, sw, scr = compare_projector(PJ, H, m, p, plain_on_cpu=True)
+        check(tuple(scr.tolist()) == PROJECTOR_BOUNDARY_SCREENED,
+              f"boundary batch {name}: screened {scr.tolist()}, expected "
+              f"{list(PROJECTOR_BOUNDARY_SCREENED)}")
+        n_con = PJ.projector_cuda(H, m, p.damping, p.degen_rel, p.degen_thresh)[1]
+        check(torch.equal(n_con, projector_exact_count(H, m, p)),
+              f"boundary batch {name}: counts {n_con.tolist()} differ from the exact ones")
+        n_card = PJ.projector_plain(H, m, p.damping, p.degen_rel, p.degen_thresh)[1]
+        eigh_off += [f"{name}: {n_card.tolist()}"] if not torch.equal(n_card, n_con) else []
+        rows[name] = {"max_abs_err": err, "screened": int(scr.sum()),
+                      "n_constrained": n_con.tolist(), "plain_on_card": n_card.tolist()}
         errs.append(err)
     J = g.standard_normal((PROJECTOR_BATCH, 64, 6))
     J[: PROJECTOR_BATCH // 4, :, g.integers(0, 6)] *= 1e-3  # a quarter degenerate
     Hb = torch.as_tensor(np.einsum("bki,bkj->bij", J, J) * g.uniform(1, 400, (PROJECTOR_BATCH, 1, 1)),
                          dtype=torch.float32, device=dev)
     mb = torch.as_tensor(g.integers(50, 4000, PROJECTOR_BATCH), dtype=torch.int32, device=dev)
-    err, sw = compare_projector(PJ, Hb, mb, params)
-    rows[f"batch {PROJECTOR_BATCH}"] = {"max_abs_err": err, "sweeps_max": int(sw.max())}
+    err, sw_b, scr_b = compare_projector(PJ, Hb, mb, params)
+    rows[f"batch {PROJECTOR_BATCH}"] = {"max_abs_err": err, "sweeps_max": int(sw_b.max()),
+                                        "screened": int(scr_b.sum())}
     errs.append(err)
     log("projector", "corner cases (non-finite, a corridor with one direction under the floor, "
-        "isotropic, the absolute floor, zero) and a batch of "
-        f"{PROJECTOR_BATCH} random normal matrices in one launch: equal counts, max |ΔP| "
+        "isotropic, the absolute floor, zero), the boundary batch (3 floors x at, under, over the "
+        f"rounding midpoint) and a batch of {PROJECTOR_BATCH} random normal matrices in one "
+        "launch: equal counts, sweeps and screen decisions equal to the CPU model's; max |ΔP| "
         + ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in rows.items() if k != "frames"))
+    log("projector", "boundary batch counts (5 matrices each): " + "; ".join(
+        f"{k}: {rows[k]['n_constrained']}" for k in PROJECTOR_BOUNDARY)
+        + f"; the batch of {PROJECTOR_BATCH}: {int(scr_b.sum())} screened, Jacobi sweeps at "
+        f"most {int(sw_b.max())}")
+    log("projector", "the plain version on the card (cuSOLVER) at the boundary batch: "
+        + ("; ".join(eigh_off) + " (off the exact count at the tie)" if eigh_off
+           else "the exact counts everywhere"))
 
-    # timed at the path's shape: one of the frames' matrices a launch
-    H, m = captured[len(captured) // 2]
-    args = (params.damping, params.degen_rel, params.degen_thresh)
-    A = (H.to(torch.float64) + params.damping * torch.eye(6, dtype=torch.float64, device=dev))
-
-    def kern():
-        return PJ.projector_cuda(H, m, *args)
-
-    def plain():
-        return PJ.projector_plain(H, m, *args)
-
-    def lib():
-        return torch.linalg.eigh(A)
-
-    p1, k1, l1, k2, p2 = (cuda_ms(f, 100) for f in (plain, kern, lib, kern, plain))
-    sw_one = sweeps[len(captured) // 2]
-    bound, by = projector_bound_ms(1, sw_one)
-    out = {"cases": rows, "max_abs_err": max(errs), "ms": (k1 + k2) / 2,
-           "plain_ms": (p1 + p2) / 2, "library_ms": l1, "bound_ms": bound, "bound_by": by,
-           "call_ms": cuda_ms(kern, 100, queued=False), "sweeps": sw_one}
-    log("projector", f"one 6x6 matrix a launch ({sw_one} sweeps): kernel {out['ms']:.4f} ms "
-        f"({out['call_ms']:.4f} ms a call at Python's pace), plain {out['plain_ms']:.4f} ms, "
-        f"torch.linalg.eigh alone {l1:.4f} ms, bound {bound:.3g} ms ({by})")
-    return out
+    # timed: a screened path matrix (one a launch, as the path launches), the
+    # corridor (the Jacobi path) and the batch
+    empty_ms = cuda_ms(K.empty_launch_cuda, 200)
+    check(any(screened), "the screen passed none of the path's matrices")
+    mid = screened.index(True)
+    H, m = captured[mid]
+    Hc, mc = cases["corridor"]
+    timed = {
+        "path": time_projector(PJ, H, m, params, torch.tensor([sweeps[mid]]),
+                               torch.tensor([True]), empty_ms),
+        "corridor": time_projector(PJ, Hc, mc, params, torch.tensor([rows["corridor"]["sweeps"]]),
+                                   torch.tensor([False]), empty_ms),
+        "batch": time_projector(PJ, Hb, mb, params, sw_b, scr_b, empty_ms),
+    }
+    for name, r in timed.items():
+        log("projector", f"{name} ({r['B']} matrices, {r['screened']} screened, at most "
+            f"{r['sweeps_max']} sweeps): kernel {r['ms']:.4f} ms ({r['call_ms']:.4f} ms a call at "
+            f"Python's pace), plain {r['plain_ms']:.4f} ms, torch.linalg.eigh alone {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.3g} ms ({r['bound_by']}), empty launch {empty_ms:.5f} ms")
+    path = timed["path"]
+    return {"cases": rows, "max_abs_err": max(errs), "timed": timed,
+            "ms": path["ms"], "plain_ms": path["plain_ms"], "library_ms": path["library_ms"],
+            "bound_ms": path["bound_ms"], "bound_by": path["bound_by"], "call_ms": path["call_ms"],
+            "ms_jacobi": timed["corridor"]["ms"], "empty_launch_ms": empty_ms,
+            "screened": sum(screened)}
 
 
 # ---------------------------------------------------------------------------
@@ -953,8 +1159,8 @@ def phase_profile(scans, frame_ms):
     knn_ms = sum(r[1] for r in rows if "knn_partial_kernel" in r[0] or "knn_merge_kernel" in r[0])
     launches = counts["device_events"]
     check(knn_ms > 0, "the profile shows no k-NN kernel on the device")
-    check(any("projector_kernel" in r[0] for r in rows),
-          "the profile shows no projector kernel on the device")
+    proj_ms = sum(r[1] for r in rows if "projector_kernel" in r[0])
+    check(proj_ms > 0, "the profile shows no projector kernel on the device")
     check(counts["dtoh"] == 1, f"the fused frame copied {counts['dtoh']:g} times a frame from the "
           "card, not once (its read-back)")
     check(launches < EARLIER_EVENTS_PER_FRAME,
@@ -964,13 +1170,15 @@ def phase_profile(scans, frame_ms):
     log("profile", f"per frame: device busy {total:.3f} ms = {100 * total / frame_ms:.1f}% of "
         f"the {frame_ms:.2f} ms median frame (idle {100 - 100 * total / frame_ms:.1f}%), "
         f"{launches:g} device events (one-thread-a-query kernel: {EARLIER_EVENTS_PER_FRAME}); knn kernels "
-        f"{knn_ms:.3f} ms (one-thread-a-query kernel: {EARLIER_KNN_MS_PER_FRAME}); profiled wall "
+        f"{knn_ms:.3f} ms (one-thread-a-query kernel: {EARLIER_KNN_MS_PER_FRAME}); projector kernel "
+        f"{proj_ms:.4f} ms (the one-thread Jacobi kernel: {EARLIER_PROJECTOR_MS_PER_FRAME}); profiled wall "
         f"{wall:.2f} ms; device-to-host copies {counts['dtoh']:g}, host-to-device copies "
         f"{counts['htod']:g}, host waits (cudaStreamSynchronize) {counts['waits']:g}; top: {top}")
     return {"profiled_wall_ms_per_frame": wall, "device_ms_per_frame": total,
             "device_busy_share": total / frame_ms, "device_events_per_frame": launches,
             "dtoh_per_frame": counts["dtoh"], "htod_per_frame": counts["htod"],
             "host_waits_per_frame": counts["waits"], "knn_device_ms_per_frame": knn_ms,
+            "projector_device_ms_per_frame": proj_ms,
             "kernels": [{"name": k, "ms_per_frame": ms, "calls_per_frame": c}
                         for k, ms, c in rows[:25]]}
 
@@ -2696,10 +2904,17 @@ def main(argv=None):
 
     seconds = {"build": time.perf_counter() - t_start}
 
-    def run(name, fn, *a):  # a phase, with its wall time
+    jacobi = {}
+
+    def run(name, fn, *a):  # a phase, with its wall time and its projector matrices
         t0 = time.perf_counter()
-        out = fn(*a)
+        with JacobiTally() as tally:
+            out = fn(*a)
         seconds[name] = time.perf_counter() - t0
+        jacobi[name] = c = tally.counts()
+        if c["matrices"]:
+            log(name, f"projector: {c['jacobi']} of {c['matrices']} matrices took the Jacobi path "
+                f"({c['sweeps']} sweeps, at most {c['sweeps_max']}), the others were screened")
         return out
 
     kernel = run("kernel", phase_kernel, K)
@@ -2798,7 +3013,13 @@ def main(argv=None):
         "max_abs_err": proj["max_abs_err"],
         "ms": proj["ms"], "plain_ms": proj["plain_ms"], "bound_ms": proj["bound_ms"],
         "bound_by": proj["bound_by"], "library_ms": proj["library_ms"],
-        "shape": "one 6x6 matrix a launch", "call_ms": proj["call_ms"],
+        "shape": "one 6x6 matrix a launch, screened (the path's)", "call_ms": proj["call_ms"],
+        "ms_jacobi": proj["ms_jacobi"], "empty_launch_ms": proj["empty_launch_ms"],
+        "screened_of_path_matrices": f"{proj['screened']} of {2 * PROJECTOR_PER_FRAME}",
+        "jacobi_of_matrices": {name: [c["jacobi"], c["matrices"]]
+                               for name, c in jacobi.items() if c["matrices"]},
+        **{f"{k}_{name}": v for name, r in proj["timed"].items() for k, v in r.items()
+           if k in ("ms", "plain_ms", "library_ms", "bound_ms")},
     }]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2807,6 +3028,7 @@ def main(argv=None):
                        "profile": prof, "backend": be, "reboot": reboot, "async": asyn,
                        "city": city, "persist": persist, "merge": sessions, "lio": lio,
                        "schur": schur, "dual": dual, "phase_seconds": seconds,
+                       "projector_jacobi": jacobi,
                        "seconds": time.perf_counter() - t_start},
                       fh, indent=1)
     log("done", f"all phases in {time.perf_counter() - t_start:.0f} s: " + ", ".join(
