@@ -16,7 +16,9 @@ Phases, one line each:
              shapes (384×8192 and 1536×16384 at k=5, 1920×24576 at k=1; the
              backend's local maps of 7, 10 and 11 keyframes: 384×2688,
              384×3840, 384×4224, 1536×10752, 1536×15360, 1536×16896; the
-             city's ten; the fused two-LiDAR frame's 768×8192) and
+             city's ten; the fused two-LiDAR frame's 768×8192; the KITTI
+             configuration's 6144×16384, 6144×61440, 6144×67584 and, with the
+             city's features, 3072×33792) and
              at the corner cases (masked queries, a size that is no multiple
              of slice or tile, duplicated references, Q=1, N=1, no valid
              reference, no valid query, k above the number of valid
@@ -168,9 +170,46 @@ Phases, one line each:
              frames with the extrinsic given (fused from frame 0). Prints
              frame times, launches a frame and, from ``torch.profiler``,
              copies and host waits a frame for each calibration phase and
-             for fused frames.
+             for fused frames;
+14. icp    — the closed course of phase backend through
+             ``MultiLidarSystem`` with ``registration_method=
+             "sparse_point_plane_icp"`` (the scan voxel-downsampled at 0.4 m
+             into 1536 surf points, no edges; the fused step; sync): map-frame
+             ATE under 0.25 m (``tests/test_system.py``'s ICP bound), the
+             first 5 frames within 1e-3 m of the CPU, one device-to-host copy
+             on each profiled frame without a keyframe, every association
+             through the k-NN and projector kernels and every k-NN shape held
+             by phase kernel; prints ms a frame, launches a frame, loops;
+15. ndt    — between city and persist: the frame of the city run's
+             keyframe 40 (64 × 1800, voxel-downsampled at 0.3 m) registered
+             by ``register_ndt`` at ``NdtParams()`` against
+             ``voxel_gaussians`` (1 m, 16384 voxels) of keyframes 30..39's
+             stored clouds at their ground-truth poses, from 0.25 m / 2° off
+             the truth (recorded: NDT's likelihood weights vanish a few σ off
+             a wall's thin Gaussian, so it creeps) and from 0.05 m / 0.5° off
+             (held to ``tests/test_registration.py``'s 0.1 m / 0.05 rad);
+             both card vs CPU within 1e-3 m on the same voxel statistics, 8
+             projector launches (the kernel, never ``torch.linalg.eigh``), one
+             device-to-host copy a registration; prints occupied voxels
+             against ``max_voxels``, iterations, ms a registration;
+16. kitti  — the KITTI entry point at HDL-64 width: the first 120 frames of
+             the LIO city course written as a KITTI sequence under
+             ``build/kitti_smoke`` (clockwise sweeps: each rendered in the
+             y-mirrored city along the y-mirrored course and its y negated;
+             files column by column from the sweep's start; a KITTI-like
+             ``Tr``; poses in the cam0 frame), read back through
+             ``KittiSequence`` and run through
+             ``scripts/evaluate_torch.py::run_kitti`` twice: with the city's
+             feature settings (ATE under 0.5 m, RPE finite, nothing dropped,
+             every k-NN shape held by phase kernel) and with its published
+             configuration (its first 3 frames within 1e-3 m of the CPU; its
+             ATE recorded: it leaves the course, as the reference does);
+             ``load_poses`` gives back the course within 1e-4 m
+             and the reader's sweep times the simulator's within half a
+             column.
 
-After each phase a line says how many of its projector matrices took the
+The phases run in the order 1–7, 14, 8, 15, 9–13, 16. After each phase a
+line says how many of its projector matrices took the
 Jacobi path (``JacobiTally``: the kernel's sweeps, kept on the card and read
 once at the phase's end). Temporary files go under ``build/chip_smoke_tmp``
 and are removed. Then a line with each phase's wall time, the card's name
@@ -180,7 +219,9 @@ and power limit, one JSON line of kernel numbers, and the result line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -269,6 +310,20 @@ CITY_SHAPES = [
 DUAL_SHAPES = [
     ("dual frame edge 768x8192 k=5", 768, 8192, 5),
 ]
+# phase kitti: run_kitti's configuration (64 × 1800 at the default feature
+# density: 1536 edge and 6144 surf features a frame): the frame's surf
+# association against the 16384-point map (its edge shape, 1536x8192, is the
+# city frame's), localization on 10 keyframes and loop verification on 11
+# (the default adjacent_window=5); the edge sides are the city's and the
+# backend's shapes; with the city's feature settings, loop verification's surf
+# side on 11 keyframes
+KITTI_SHAPES = [
+    ("kitti frame surf 6144x16384 k=5", 6144, 16384, 5),
+    ("kitti loc10 surf 6144x61440 k=5", 6144, 61440, 5),
+    ("kitti loop11 surf 6144x67584 k=5", 6144, 67584, 5),
+    # with the city course's feature settings (3072 surf features a frame)
+    ("kitti city-features loop11 surf 3072x33792 k=5", 3072, 33792, 5),
+]
 
 # phases async, city, persist and merge
 CITY_SEED = 0
@@ -333,6 +388,29 @@ DUAL_CPU_FRAMES = 5
 DUAL_EXTRINSIC_LIMIT = (0.05, 2.0)  # m, degrees: tests/test_multilidar.py's bounds
 DUAL_ATE_LIMIT = 0.3  # m, the same test's bound
 DUAL_PROFILE = 2  # frames profiled in each calibration phase and fused (not timed)
+# phase icp: the looped course through the ICP method
+ICP_ATE_LIMIT = 0.25  # m, tests/test_system.py::test_system_sparse_point_plane_icp's bound
+ICP_CPU_FRAMES = 5
+ICP_PROFILE = 2  # frames without a keyframe profiled (not timed)
+# phase ndt: one city frame against the 10 keyframes before it
+NDT_KEYFRAME = 40  # the frame of this keyframe of the city run is registered
+NDT_MAP_KEYFRAMES = 10
+NDT_SRC_VOXEL = 0.3  # m, the scan's downsampling (tests/test_registration.py's)
+NDT_SRC_CAPACITY = 65536
+# the starts off the truth, (m, degrees of yaw): 0.25 m / 2°, where NDT at 1 m
+# voxels creeps (its likelihood weights vanish a few σ off a wall's thin
+# Gaussian, ~5 cm), recorded; and 0.05 m / 0.5°, inside that basin, held
+NDT_STARTS = {"0.25 m / 2°": ((0.15, -0.2, 0.0), 2.0), "0.05 m / 0.5°": ((0.03, -0.04, 0.0), 0.5)}
+NDT_HELD = "0.05 m / 0.5°"
+NDT_LIMIT = (0.1, 0.05)  # m, rad: tests/test_registration.py::test_ndt_registration's bounds
+NDT_REPEATS = 5
+# phase kitti: the first frames of the LIO city course written as a KITTI
+# sequence and read back through scripts/evaluate_torch.py::run_kitti
+KITTI_FRAMES = 120
+KITTI_ATE_LIMIT = 0.5  # m, the city bound
+KITTI_CPU_FRAMES = 3
+KITTI_POSES_AGREE = 1e-4  # m, load_poses against the course
+KITTI_DIR = os.path.join(ROOT, "build", "kitti_smoke")
 
 
 class SmokeFailure(RuntimeError):
@@ -554,7 +632,8 @@ def phase_kernel(K):
         ("no valid query 64x1000 k=5 S=2", 64, 1000, 5, 64, 0.8, False, 2),
         ("k>valid 40x3000 k=8 S=6", 40, 3000, 8, 5, 5, False, 6),
     ] + [(name, Q, N, 5, 0, 0.7, False, None) for name, Q, N in BACKEND_SHAPES] + [
-        (name, Q, N, k, 0, 0.7, False, None) for name, Q, N, k in CITY_SHAPES + DUAL_SHAPES]
+        (name, Q, N, k, 0, 0.7, False, None)
+        for name, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES]
     results = {}
     timed = {}
     for i, (name, Q, N, k, qi, valid, dup, forced) in enumerate(cases):
@@ -568,7 +647,7 @@ def phase_kernel(K):
                "slice_len": slice_len, "blocks": blocks, "max_abs_err": err,
                "near_tie_rows": n_tie, "equals_single_scan_model": small}
         results[name] = row
-        if name.startswith(("edge", "surf", "nn1", "loop", "loc", "city", "dual")):
+        if name.startswith(("edge", "surf", "nn1", "loop", "loc", "city", "dual", "kitti")):
             timed[name] = (q, qm, r, rm, k)
             continue
         log("kernel", f"{name}: S={S} (slices of {slice_len}), {blocks} blocks; agrees with "
@@ -579,7 +658,7 @@ def phase_kernel(K):
         check(results[name]["blocks"] >= 264,
               f"{name}: grid of {results[name]['blocks']} blocks, fewer than 264")
     # choose_splits gives a sane grid at the backend's and the city's shapes
-    for name in [c[0] for c in BACKEND_SHAPES + CITY_SHAPES + DUAL_SHAPES]:
+    for name in [c[0] for c in BACKEND_SHAPES + CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES]:
         row = results[name]
         check(K.MIN_SLICE <= row["slice_len"] <= K.MAX_SLICE and row["slice_len"] % K.ALIGN == 0
               and row["splits"] > 1,
@@ -1638,9 +1717,9 @@ def city_config(extras=True):
 
 class CityCourse:
     """The city world, its course and its movers, from one seed; scans are
-    rendered on the card, one a call."""
+    rendered on ``device`` (the card), one a call."""
 
-    def __init__(self, seed=CITY_SEED):
+    def __init__(self, seed=CITY_SEED, device="cuda"):
         from lmsf_slam_tpu_torch.datasets import (
             make_city_course, make_city_world, make_movers)
 
@@ -1649,6 +1728,7 @@ class CityCourse:
         self.movers = make_movers(int(rng.integers(2**31 - 1)))
         self.traj = make_city_course()
         self.rng = rng
+        self.device = device
 
     def scan(self, frame, movers=True):
         from lmsf_slam_tpu_torch.datasets import HDL64, simulate_scan, world_with_movers
@@ -1657,7 +1737,7 @@ class CityCourse:
         return simulate_scan(w, self.traj[frame], self.rng, rings=HDL64["rings"],
                              width=HDL64["width"], elev_min=HDL64["elev_min"],
                              elev_max=HDL64["elev_max"], max_range=80.0, min_range=2.5,
-                             noise=0.01, device="cuda")
+                             noise=0.01, device=self.device)
 
     def sweep(self, frame):
         """The motion-blurred HDL-64 sweep that ends at ``frame`` (the static
@@ -1666,7 +1746,7 @@ class CityCourse:
 
         kw = dict(rings=HDL64["rings"], width=HDL64["width"], elev_min=HDL64["elev_min"],
                   elev_max=HDL64["elev_max"], max_range=80.0, min_range=2.5, noise=0.01,
-                  device="cuda")
+                  device=self.device)
         if frame == 0:
             return simulate_scan(self.world, self.traj[0], self.rng, **kw)
         return simulate_scan_moving(self.world, self.traj[frame - 1], self.traj[frame], self.rng,
@@ -2720,25 +2800,15 @@ def phase_dual():
     from lmsf_slam_tpu_torch import _build
     from lmsf_slam_tpu_torch.common import se3np
     from lmsf_slam_tpu_torch.evaluation import ate_stats
-    from lmsf_slam_tpu_torch.ops import knn as K
     from lmsf_slam_tpu_torch.system import MultiLidarSystem
 
     traj, scans = dual_course(DUAL_FRAMES)
     gt = se3np.pose_between(traj[:1], traj)
     system = MultiLidarSystem(dual_config(), device="cuda")
-    shapes = {}
-    knn_cuda = K.knn_cuda
-
-    def census(q, qm, r, rm, k, *a, **kw):  # the k-NN shapes this path meets
-        key = (int(q.shape[0]), int(r.shape[0]), int(k))
-        shapes[key] = shapes.get(key, 0) + 1
-        return knn_cuda(q, qm, r, rm, k, *a, **kw)
-
     torch.cuda.synchronize()
     _build.reset_launches()
-    K.knn_cuda = census
     rows, profiled = [], {0: [], 1: [], 2: []}
-    try:
+    with knn_census() as shapes:  # the k-NN shapes this path meets
         for i, pair in enumerate(scans):
             phase = system.calib_status
             before = dict(_build.launches)
@@ -2756,8 +2826,6 @@ def phase_dual():
                          "after": res.calib_status, "matches": res.num_matches,
                          **{k: _build.launches.get(k, 0) - before.get(k, 0)
                             for k in ("knn", "knn_merge", "projector")}})
-    finally:
-        K.knn_cuda = knn_cuda
     launches = dict(_build.launches)
     est = system.trajectory()
     ate = ate_stats(est, gt).rmse if np.isfinite(est).all() else float("nan")
@@ -2848,6 +2916,511 @@ def phase_dual():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases icp, ndt and kitti
+# ---------------------------------------------------------------------------
+
+
+def tabled_shapes():
+    """The k-NN shapes (Q, N, k) that phase kernel holds and times."""
+    return ({(384, 8192, 5), (1536, 16384, 5), (1920, 24576, 1)}
+            | {(Q, N, 5) for _, Q, N in BACKEND_SHAPES}
+            | {(Q, N, k) for _, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES})
+
+
+@contextlib.contextmanager
+def knn_census():
+    """Count the k-NN shapes (Q, N, k) the path meets while the block runs."""
+    from lmsf_slam_tpu_torch.ops import knn as K
+
+    shapes, knn_cuda = {}, K.knn_cuda
+
+    def census(q, qm, r, rm, k, *a, **kw):
+        key = (int(q.shape[0]), int(r.shape[0]), int(k))
+        shapes[key] = shapes.get(key, 0) + 1
+        return knn_cuda(q, qm, r, rm, k, *a, **kw)
+
+    K.knn_cuda = census
+    try:
+        yield shapes
+    finally:
+        K.knn_cuda = knn_cuda
+
+
+def check_shapes_tabled(phase, shapes):
+    untabled = sorted(set(shapes) - tabled_shapes())
+    check(not untabled, f"{phase}: k-NN shapes that phase kernel does not hold: {untabled}")
+
+
+def icp_config():
+    """The looped course's configuration with the ICP method at the default
+    ``icp_voxel_size`` (0.4 m), the backend inline."""
+    return backend_config()._replace(registration_method="sparse_point_plane_icp")
+
+
+def phase_icp(traj, scans):
+    """The looped course through ``MultiLidarSystem`` with the ICP method."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.evaluation import ate_stats
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    cfg = icp_config()
+    check(cfg.icp_voxel_size == 0.4 and not cfg.async_backend, "the icp configuration")
+    n = len(scans)
+    system = MultiLidarSystem(cfg, device="cuda")
+    check(system._fused_step is not None, "the ICP frame did not take the fused step")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    results, times, profiled = [], [], []
+    with knn_census() as shapes:
+        for i, scan in enumerate(scans):
+            if 2 <= i < 2 + 3 * ICP_PROFILE:  # a trace, left out of the frame times
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    res = system.process(scan, 0.1 * i)
+                    torch.cuda.synchronize()
+                profiled.append((res.is_keyframe, profile_counts(prof, 1)))
+            else:
+                t0 = time.perf_counter()
+                res = system.process(scan, 0.1 * i)
+                times.append(time.perf_counter() - t0)
+            results.append(res)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    backend, db = system.backend, system.backend.db
+
+    est = system.trajectory()
+    odom = np.stack([r.odom_pose for r in results])
+    finite = bool(np.isfinite(est).all() and np.isfinite(odom).all())
+    gt = np.stack([se3np.pose_between(traj[0], traj[i]) for i in range(n)])
+    ate_map = ate_stats(est, gt).rmse if finite else float("nan")
+    ate_odom = ate_stats(odom, gt).rmse if finite else float("nan")
+    closed = [i for i, r in enumerate(results) if r.loop_closed]
+    quiet = [c for kf, c in profiled if not kf][:ICP_PROFILE]
+
+    cpu = MultiLidarSystem(cfg, device="cpu")
+    t0 = time.perf_counter()
+    odom_cpu = np.stack([cpu.process(scans[i], 0.1 * i).odom_pose for i in range(ICP_CPU_FRAMES)])
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / ICP_CPU_FRAMES
+    dev_cpu = float(np.max(np.abs(odom_cpu - odom[:ICP_CPU_FRAMES])))
+
+    timed_kf = [r.is_keyframe for i, r in enumerate(results) if not 2 <= i < 2 + 3 * ICP_PROFILE]
+    out = {
+        **frame_stats(times, timed_kf),
+        "frames": n, "keyframes_stored": int(db.n_keyframes), "edges": int(db.n_edges),
+        "loops_closed": len(closed), "loop_closed_at_frames": closed,
+        "loop_edges": db.eij[:db.n_edges][db.eloop[:db.n_edges]].tolist(),
+        "final_mode": backend.mode.name, "solver_runs": dict(backend.solver_runs),
+        "ate_map_m": ate_map, "ate_odom_m": ate_odom,
+        "num_matches_median": float(np.median([r.num_matches for r in results])),
+        "knn_launches": launches.get("knn", 0), "knn_merge_launches": launches.get("knn_merge", 0),
+        "projector_launches": launches.get("projector", 0),
+        "knn_launches_per_frame": launches.get("knn", 0) / n,
+        "projector_launches_per_frame": launches.get("projector", 0) / n,
+        "knn_shapes": {f"{q}x{r} k={k}": c for (q, r, k), c in sorted(shapes.items())},
+        "profiled": [{"is_keyframe": kf, **{k: v for k, v in c.items() if k != "rows"}}
+                     for kf, c in profiled],
+        "cpu_frames": ICP_CPU_FRAMES, "cpu_max_abs_pose_diff": dev_cpu, "cpu_frame_ms": cpu_ms,
+    }
+    log("icp", f"{n} frames of the looped course with sparse_point_plane_icp (voxel "
+        f"{cfg.icp_voxel_size} m, {cfg.feature.surf_capacity} surf points, no edges): "
+        f"{db.n_keyframes} keyframes, loops closed {len(closed)} (at frames {closed}), final mode "
+        f"{backend.mode.name}, solver runs {out['solver_runs']}; ATE map frame {ate_map:.4f} m, "
+        f"odometry {ate_odom:.4f} m (limit {ICP_ATE_LIMIT})")
+    log("icp", f"ms/frame median {out['frame_ms_median']:.2f}, p90 {out['frame_ms_p90']:.2f}, "
+        f"max {out['frame_ms_max']:.1f}; without a keyframe median "
+        f"{out['frame_ms_median_no_kf']:.2f}; knn {out['knn_launches_per_frame']:.2f} and "
+        f"projector {out['projector_launches_per_frame']:.2f} launches a frame (backend included); "
+        f"k-NN shapes {out['knn_shapes']}")
+    log("icp", "profiled frames without a keyframe: " + "; ".join(
+        f"{c['dtoh']:g} device-to-host copies, {c['htod']:g} host-to-device, {c['waits']:g} host "
+        f"waits, {c['device_events']:g} device events, {c['device_ms']:.3f} ms busy"
+        for c in quiet) + f"; first {ICP_CPU_FRAMES} frames card vs CPU max |Δpose| "
+        f"{dev_cpu:.3g} (CPU {cpu_ms:.0f} ms a frame)")
+    check(len(results) == n and finite, "non-finite pose on the ICP course")
+    check(ate_map < ICP_ATE_LIMIT, f"ICP map-frame ATE {ate_map:.4f} m ≥ {ICP_ATE_LIMIT} m")
+    check(dev_cpu < CPU_AGREE, f"ICP card vs CPU {dev_cpu:.3g} ≥ {CPU_AGREE}")
+    check(quiet and all(c["dtoh"] == 1 for c in quiet),
+          f"an ICP frame without a keyframe copied {[c['dtoh'] for c in quiet]} times from the "
+          "card, not once (its read-back)")
+    check(launches.get("knn", 0) >= 8 * n and launches.get("projector", 0) >= 4 * n,
+          f"the ICP frames did not go through the kernels: {launches}")
+    check_shapes_tabled("icp", shapes)
+    return out
+
+
+def phase_ndt(course, holder):
+    """One city frame registered by NDT against the 10 keyframes before it
+    (their stored clouds at their ground-truth poses in the first session's
+    map frame), from two starts, on the card and on the CPU."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.common import se3, se3np
+    from lmsf_slam_tpu_torch.common.pointcloud import PointBatch
+    from lmsf_slam_tpu_torch.ops.registration import NdtParams, register_ndt
+    from lmsf_slam_tpu_torch.ops.voxel import voxel_downsample, voxel_gaussians
+
+    params = NdtParams()
+    db = holder["system"].backend.db
+    k = NDT_KEYFRAME
+    check(db.n_keyframes > k, f"the city run stored {db.n_keyframes} keyframes, not > {k}")
+    frames = np.round(db.stamps[:k + 1] / 0.1).astype(int)
+    gt = course.gt_in_first_map_frame(frames)  # keyframe poses in the first map frame
+    pts = []
+    for j in range(k - NDT_MAP_KEYFRAMES, k):
+        for xyz, m in ((db.edge_xyz[j], db.edge_mask[j]), (db.surf_xyz[j], db.surf_mask[j])):
+            local = torch.as_tensor(np.asarray(xyz)[np.asarray(m)], dtype=torch.float64)
+            pts.append(se3.pose_apply(torch.as_tensor(gt[j], dtype=torch.float64), local))
+    map_pb = PointBatch(torch.cat(pts).to(torch.float32).to("cuda"),
+                        torch.ones(sum(p.shape[0] for p in pts), dtype=torch.bool, device="cuda"))
+    scan = course.scan(int(frames[k]), movers=True)  # the keyframe's own frame, on the card
+    src = voxel_downsample(scan, NDT_SRC_VOXEL, NDT_SRC_CAPACITY)
+    n_src = int(src.mask.sum())
+    check(n_src < NDT_SRC_CAPACITY, f"the downsampled scan fills its capacity ({n_src})")
+    truth = np.asarray(gt[k], np.float64)
+    g = voxel_gaussians(map_pb, params.resolution, params.max_voxels)
+    occupied, n_valid = int((g["keys"] < 2**31 - 1).sum()), int(g["valid"].sum())
+    # the CPU: the card's voxel statistics (held), and its own, whose float32
+    # E[xxᵀ] − μμᵀ cancels at city coordinates (recorded)
+    g_host = {key: v.cpu() for key, v in g.items()}
+    g_own = voxel_gaussians(PointBatch(map_pb.xyz.cpu(), map_pb.mask.cpu()), params.resolution,
+                            params.max_voxels)
+    cov_gap = float(torch.max(torch.abs(g_own["covs"] - g_host["covs"])))
+    s_host = PointBatch(src.xyz.cpu(), src.mask.cpu(), src.attr.cpu())
+
+    def read(res):  # the registration's one read-back
+        return torch.cat([res.pose, res.iterations.to(torch.float32).reshape(1),
+                          res.n_constrained.to(torch.float32).reshape(1),
+                          res.converged.to(torch.float32).reshape(1),
+                          res.num_matches.to(torch.float32).reshape(1)]).cpu().numpy()
+
+    def error(pose):
+        d = se3np.pose_between(truth, np.asarray(pose, np.float64))
+        return float(np.linalg.norm(d[4:])), float(np.linalg.norm(se3np.so3_log(d[:4])))
+
+    starts = {}
+    for name, ((dx, dy, dz), deg) in NDT_STARTS.items():
+        offset = se3np.make_pose(se3np.so3_exp_quat(np.array([0.0, 0.0, np.deg2rad(deg)])),
+                                 np.array([dx, dy, dz]))
+        init = np.asarray(se3np.pose_compose(truth, offset), np.float32)
+        init_card = torch.as_tensor(init, device="cuda")
+        out_card = read(register_ndt(src, g, init_card, params))  # warm-up
+        ms = []
+        for _ in range(NDT_REPEATS):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out_card = read(register_ndt(src, g, init_card, params))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.launches)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            read(register_ndt(src, g, init_card, params))
+            torch.cuda.synchronize()
+        counts = profile_counts(prof, 1)
+        eigh_calls = [e.key for e in prof.key_averages() if "eigh" in e.key or "syevd" in e.key]
+        out_cpu = read(register_ndt(s_host, g_host, torch.as_tensor(init), params))
+        out_own = read(register_ndt(s_host, g_own, torch.as_tensor(init), params))
+        t_err, r_err = error(out_card[:7])
+        starts[name] = {
+            "offset_m": float(np.linalg.norm(offset[4:])), "offset_deg": deg,
+            "iterations": int(out_card[7]), "n_constrained": int(out_card[8]),
+            "converged": bool(out_card[9]), "num_matches": int(out_card[10]),
+            "iterations_cpu": int(out_cpu[7]), "trans_err_m": t_err, "rot_err_rad": r_err,
+            "ms": ms, "ms_median": float(np.median(ms)), "knn_launches": launches.get("knn", 0),
+            "projector_launches": launches.get("projector", 0), "dtoh": counts["dtoh"],
+            "htod": counts["htod"], "host_waits": counts["waits"],
+            "device_ms": counts["device_ms"], "device_events": counts["device_events"],
+            "eigh_calls": eigh_calls,
+            "cpu_max_abs_pose_diff": float(np.max(np.abs(out_card[:7] - out_cpu[:7]))),
+            "cpu_own_gaussians_max_abs_pose_diff": float(np.max(np.abs(out_card[:7]
+                                                                       - out_own[:7]))),
+            "cpu_own_gaussians_trans_err_m": error(out_own[:7])[0],
+        }
+    out = {
+        "keyframe": k, "frame": int(frames[k]), "map_keyframes": NDT_MAP_KEYFRAMES,
+        "map_points": int(map_pb.xyz.shape[0]), "src_points": n_src,
+        "occupied_voxels": occupied, "valid_voxels": n_valid, "max_voxels": params.max_voxels,
+        "cpu_own_gaussians_cov_max_abs": cov_gap, "starts": starts, "held": NDT_HELD,
+        "projector_launches": sum(r["projector_launches"] for r in starts.values()),
+        "ms_median": starts[NDT_HELD]["ms_median"],
+    }
+    log("ndt", f"city frame {out['frame']} (keyframe {k}) against keyframes {k - NDT_MAP_KEYFRAMES}"
+        f"..{k - 1} at their ground-truth poses: {out['map_points']} map points in {occupied} "
+        f"occupied voxels of {params.max_voxels} ({n_valid} with ≥ 3 points), {n_src} scan points "
+        f"at {NDT_SRC_VOXEL} m; the CPU's own float32 covariances lie up to {cov_gap:.3g} m² from "
+        f"the card's float64 ones")
+    for name, r in starts.items():
+        log("ndt", f"from {name} off: {r['iterations']} iterations, converged {r['converged']}, "
+            f"n_con {r['n_constrained']}, {r['num_matches']} matched points; error "
+            f"{r['trans_err_m']:.4f} m / {r['rot_err_rad']:.5f} rad (bounds {NDT_LIMIT}"
+            f"{', held' if name == NDT_HELD else ', recorded'}); card vs CPU on the card's voxel "
+            f"statistics max |Δpose| {r['cpu_max_abs_pose_diff']:.3g} (CPU {r['iterations_cpu']} "
+            f"iterations), on the CPU's own {r['cpu_own_gaussians_max_abs_pose_diff']:.3g}; "
+            f"{r['ms_median']:.2f} ms a registration with its read-back (median of {NDT_REPEATS}); "
+            f"projector launches {r['projector_launches']}, k-NN {r['knn_launches']}; "
+            f"device-to-host copies {r['dtoh']:g}, host-to-device {r['htod']:g}, host waits "
+            f"{r['host_waits']:g}, {r['device_events']:g} device events, {r['device_ms']:.3f} ms "
+            f"busy; eigh calls {r['eigh_calls']}")
+    check(occupied <= params.max_voxels, "more occupied slots than max_voxels")
+    held = starts[NDT_HELD]
+    check(held["trans_err_m"] < NDT_LIMIT[0] and held["rot_err_rad"] < NDT_LIMIT[1],
+          f"NDT error {held['trans_err_m']:.4f} m / {held['rot_err_rad']:.5f} rad over {NDT_LIMIT}")
+    for name, r in starts.items():
+        check(r["cpu_max_abs_pose_diff"] < CPU_AGREE,
+              f"NDT from {name}: card vs CPU {r['cpu_max_abs_pose_diff']:.3g} ≥ {CPU_AGREE}")
+        check(r["projector_launches"] == params.max_iters // 2 and not r["knn_launches"],
+              f"NDT launches {r['projector_launches']} projector and {r['knn_launches']} k-NN, "
+              f"expected {params.max_iters // 2} and none")
+        check(r["dtoh"] == 1, f"an NDT registration copied {r['dtoh']:g} times from the card, "
+              "not once (its read-back)")
+        check(not r["eigh_calls"], f"torch.linalg.eigh ran on the NDT path: {r['eigh_calls']}")
+    return out
+
+
+KITTI_MIRROR = np.diag([1.0, -1.0, 1.0])
+
+
+def kitti_tr():
+    """A KITTI-like velodyne→cam0 extrinsic: the axis permutation (camera x
+    right, y down, z forward) turned by 0.5° about the camera's y axis, and
+    an offset of ~0.3 m."""
+    perm = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    a = np.deg2rad(0.5)
+    tilt = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
+    T = np.eye(4)
+    T[:3, :3] = tilt @ perm
+    T[:3, 3] = [-0.012, -0.054, -0.292]
+    return T
+
+
+def quat_matrix(q):
+    w, x, y, z = np.asarray(q, np.float64) / np.linalg.norm(q)
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def mirror_pose(p):
+    """A pose conjugated by diag(1, −1, 1): the same motion in the world
+    mirrored in y (a reflection maps the rotation vector ω to (−ωx, ωy, −ωz))."""
+    p = np.asarray(p, np.float64)
+    return np.array([p[0], -p[1], p[2], -p[3], p[4], -p[5], p[6]], np.float32)
+
+
+def mirror_world(world):
+    from lmsf_slam_tpu_torch.datasets import SimWorld
+
+    bmin, bmax, cyl = world.boxes_min.copy(), world.boxes_max.copy(), world.cylinders.copy()
+    bmin[:, 1], bmax[:, 1] = -world.boxes_max[:, 1], -world.boxes_min[:, 1]
+    cyl[:, 1] = -cyl[:, 1]
+    return SimWorld(bmin, bmax, cyl, world.ground_z)
+
+
+def write_kitti_sequence(course, n, root, device="cuda"):
+    """The first ``n`` frames of the LIO city course as a KITTI odometry
+    sequence: ``velodyne/%06d.bin`` (float32 x, y, z, intensity 0; valid
+    returns only), ``calib.txt`` (``kitti_tr``) and ``poses/00.txt`` (the
+    course from its first pose, in the cam0 frame).
+
+    An HDL-64 spins clockwise and the KITTI reader takes each point's sweep
+    time from ``az[0] − az``; the simulator sweeps counter-clockwise. So each
+    sweep is rendered in the y-mirrored city along the y-mirrored course
+    (the motion-blurred sweep from the previous frame; frame 0 at rest) and
+    the measured points' y negated: a clockwise sweep of the real city from
+    the real course. Each file is written column by column from the sweep's
+    start. The sweeps are rendered on ``device``. Returns (the reader's times minus the sweep's own at the first
+    file's points, the first file's first column)."""
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.datasets import HDL64, simulate_scan_moving
+
+    seq = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq, "velodyne"))
+    os.makedirs(os.path.join(root, "poses"))
+    Tr = kitti_tr()
+    with open(os.path.join(seq, "calib.txt"), "w") as fh:
+        fh.write("P0: " + " ".join(["0"] * 12) + "\n")
+        fh.write("Tr: " + " ".join(f"{v:.12e}" for v in Tr[:3].reshape(-1)) + "\n")
+    world = mirror_world(course.world)
+    R, W = HDL64["rings"], HDL64["width"]
+    first = None
+    for i in range(n):
+        a, b = mirror_pose(course.traj[max(i - 1, 0)]), mirror_pose(course.traj[i])
+        pb = simulate_scan_moving(world, a, b, course.rng, rings=R, width=W,
+                                  elev_min=HDL64["elev_min"], elev_max=HDL64["elev_max"],
+                                  max_range=80.0, min_range=2.5, noise=0.01, device=device)
+        xyz = pb.xyz.cpu().numpy().reshape(R, W, 3) @ KITTI_MIRROR
+        ok = pb.mask.cpu().numpy().reshape(R, W)
+        t = pb.attr.cpu().numpy().reshape(R, W)
+        cols = np.transpose(xyz, (1, 0, 2)).reshape(-1, 3)[ok.T.reshape(-1)]
+        data = np.concatenate([cols, np.zeros((cols.shape[0], 1))], axis=1).astype(np.float32)
+        data.tofile(os.path.join(seq, "velodyne", f"{i:06d}.bin"))
+        if i == 0:
+            first = (t.T.reshape(-1)[ok.T.reshape(-1)], int(np.argmax(ok.any(axis=0))))
+    rows = []
+    for i in range(n):
+        d = se3np.pose_between(course.traj[0].astype(np.float64), course.traj[i].astype(np.float64))
+        M = np.eye(4)
+        M[:3, :3], M[:3, 3] = quat_matrix(d[:4]), d[4:]
+        rows.append((Tr @ M @ np.linalg.inv(Tr))[:3].reshape(-1))
+    np.savetxt(os.path.join(root, "poses", "00.txt"), np.array(rows), fmt="%.12e")
+    return first
+
+
+def evaluate_torch():
+    """``scripts/evaluate_torch.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "evaluate_torch", os.path.join(ROOT, "scripts", "evaluate_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kitti_run(ev, args, config, cpu_frames):
+    """``run_kitti`` on the card with ``config`` (its k-NN shapes, launches,
+    the first frames again on the CPU when ``cpu_frames``)."""
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.datasets.kitti import KittiSequence
+    from lmsf_slam_tpu_torch.system import MultiLidarSystem
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with knn_census() as shapes:
+        system, est, gt, wall, lat = ev.run_kitti(args, config)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    system._async.close()
+    odom = np.stack([r.odom_pose for r in system.results])
+    dev_cpu = cpu_ms = None
+    if cpu_frames:
+        cpu = MultiLidarSystem(config._replace(async_backend=False), device="cpu")
+        t0 = time.perf_counter()
+        odom_cpu = [cpu.process(scan, stamp).odom_pose for stamp, scan in
+                    itertools.islice(KittiSequence(KITTI_DIR, "00", device="cpu"), cpu_frames)]
+        cpu_ms = (time.perf_counter() - t0) * 1e3 / cpu_frames
+        dev_cpu = float(np.max(np.abs(np.stack(odom_cpu) - odom[:cpu_frames])))
+    return system, est, gt, odom, lat, launches, shapes, dev_cpu, cpu_ms
+
+
+def phase_kitti():
+    """The KITTI entry point at HDL-64 width: the LIO city course written as a
+    KITTI sequence, read back through ``KittiSequence`` and run through
+    ``scripts/evaluate_torch.py::run_kitti``: with its own configuration (the
+    reference's ``run_kitti``: default LOAM feature settings), and with the
+    city course's feature settings in that configuration (held to the city
+    bound)."""
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.datasets.kitti import read_velodyne_bin
+    from lmsf_slam_tpu_torch.evaluation import ate_stats, rpe_stats
+
+    ev = evaluate_torch()
+    course = CityCourse()
+    args = argparse.Namespace(root=KITTI_DIR, seq="00", frames=KITTI_FRAMES, sync=False,
+                              device="cuda")
+    published = ev.kitti_config(args)
+    city_feat = published._replace(feature=city_config().feature)
+    gt_course = np.stack([se3np.pose_between(course.traj[0], course.traj[i])
+                          for i in range(KITTI_FRAMES)]).astype(np.float32)
+    shutil.rmtree(KITTI_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        sim_t, first_col = write_kitti_sequence(course, KITTI_FRAMES, KITTI_DIR)
+        write_s = time.perf_counter() - t0
+        velo = os.path.join(KITTI_DIR, "sequences", "00", "velodyne")
+        n_bytes = sum(os.path.getsize(os.path.join(velo, f)) for f in os.listdir(velo))
+        read_t = read_velodyne_bin(os.path.join(velo, "000000.bin"),
+                                   device="cpu").attr[:, 0].numpy()[:sim_t.shape[0]]
+        time_gap = float(np.max(np.abs(read_t - sim_t)))
+        runs = {"city_features": kitti_run(ev, args, city_feat, KITTI_CPU_FRAMES),
+                "published": kitti_run(ev, args, published, KITTI_CPU_FRAMES)}
+    finally:
+        shutil.rmtree(KITTI_DIR, ignore_errors=True)
+    out = {"frames": KITTI_FRAMES, "write_s": write_s, "bytes_written": n_bytes,
+           "first_column": first_col, "reader_vs_sweep_time_max": time_gap}
+    for name, (system, est, gt, odom, lat, launches, shapes, dev_cpu, cpu_ms) in runs.items():
+        finite = bool(np.isfinite(est).all())
+        ms = np.asarray(lat) * 1e3
+        err = np.linalg.norm(odom[:, 4:] - gt_course[:, 4:], axis=1)
+        backend = system.backend
+        out[name] = {
+            "features": system.config.feature._asdict(),
+            "poses_max_abs_m": float(np.max(np.abs(gt[:, 4:] - gt_course[:, 4:]))),
+            "poses_max_abs_quat": float(np.max(np.minimum(np.abs(gt[:, :4] - gt_course[:, :4]),
+                                                          np.abs(gt[:, :4] + gt_course[:, :4])))),
+            "ate_map_m": ate_stats(est, gt_course).rmse if finite else float("nan"),
+            "ate_odom_m": ate_stats(odom, gt_course).rmse if finite else float("nan"),
+            "rpe_d10": tuple(rpe_stats(est, gt_course, delta=10))[:6],
+            "odom_err_unaligned_m": err.tolist(),
+            "first_frame_odom_err_over_1m": int(np.argmax(err > 1.0)) if (err > 1.0).any() else None,
+            "keyframes_stored": int(backend.db.n_keyframes), "final_mode": backend.mode.name,
+            "loops_closed": sum(r.loop_closed for r in system.results),
+            "solver_runs": dict(backend.solver_runs), "dropped": system._async.dropped,
+            "frame_ms_median": float(np.median(ms[1:])),
+            "frame_ms_p90": float(np.percentile(ms[1:], 90)), "frame_ms_first": float(ms[0]),
+            "frame_ms_all": ms.tolist(), "finite": finite,
+            "knn_launches": launches.get("knn", 0), "knn_merge_launches": launches.get("knn_merge", 0),
+            "projector_launches": launches.get("projector", 0),
+            "knn_shapes": {f"{q}x{r} k={k}": c for (q, r, k), c in sorted(shapes.items())},
+            "cpu_frames": KITTI_CPU_FRAMES if dev_cpu is not None else 0,
+            "cpu_max_abs_pose_diff": dev_cpu, "cpu_frame_ms": cpu_ms,
+        }
+    for key in ("knn_launches", "knn_merge_launches", "projector_launches"):
+        out[key] = out["city_features"][key] + out["published"][key]
+    c, p = out["city_features"], out["published"]
+    log("kitti", f"{KITTI_FRAMES} frames of the LIO city course written as a KITTI sequence in "
+        f"{write_s:.1f} s ({n_bytes / 2**20:.0f} MiB; clockwise sweeps by the mirror recipe, files "
+        f"column by column from column {first_col}); the reader's sweep times differ from the "
+        f"sweep's own by at most {time_gap:.2e} of a sweep (half a column: the reader gives the "
+        f"first point 0, the simulator its column's centre); load_poses gives back the course "
+        f"within {c['poses_max_abs_m']:.2e} m / {c['poses_max_abs_quat']:.2e} (quaternion)")
+    for name, r in (("city features", c), ("published configuration", p)):
+        log("kitti", f"run_kitti, {name} (64 × 1800, {r['features']['surfs_per_sector']} surf a "
+            f"sector, deskew, async): {r['keyframes_stored']} keyframes, final mode "
+            f"{r['final_mode']}, loops {r['loops_closed']}, dropped {r['dropped']}; ATE map frame "
+            f"{r['ate_map_m']:.4f} m, odometry {r['ate_odom_m']:.4f} m, RPE(10) rmse "
+            f"{r['rpe_d10'][0]:.4f} m; odometry first over 1 m from the truth at frame "
+            f"{r['first_frame_odom_err_over_1m']}; ms/frame median {r['frame_ms_median']:.2f}, p90 "
+            f"{r['frame_ms_p90']:.2f} (first {r['frame_ms_first']:.0f}); knn "
+            f"{r['knn_launches'] / KITTI_FRAMES:.2f} and projector "
+            f"{r['projector_launches'] / KITTI_FRAMES:.2f} launches a frame; k-NN shapes "
+            f"{r['knn_shapes']}" + (f"; first {KITTI_CPU_FRAMES} frames card vs CPU max |Δpose| "
+                                    f"{r['cpu_max_abs_pose_diff']:.3g} (CPU {r['cpu_frame_ms']:.0f} "
+                                    "ms a frame)" if r["cpu_max_abs_pose_diff"] is not None else ""))
+    log("kitti", "the bound (ATE under 0.5 m) is held on the city-feature run: with its published "
+        "default feature settings run_kitti's odometry drifts on these sweeps and diverges, in the "
+        "reference as in the port (PERF.md); card vs CPU is held on the published run: with the "
+        "city's features frame 1, the first motion-blurred sweep registered with no motion "
+        "estimate, is ill-posed (float32 against float64 voxel sums alone move it 0.39 m on the "
+        "CPU), so that run's card vs CPU is recorded")
+    check(first_col == 0 and read_t[0] == 0.0, "the first point does not carry time 0")
+    check(time_gap <= 0.5 / 1800 + 1e-6, f"reader and sweep times differ by {time_gap:.3g}")
+    for name, r in (("city features", c), ("published", p)):
+        check(r["poses_max_abs_m"] < KITTI_POSES_AGREE,
+              f"load_poses gives back the course within {r['poses_max_abs_m']:.3g} m")
+        check(r["knn_launches"] >= 8 * KITTI_FRAMES and r["projector_launches"] >= 4 * KITTI_FRAMES,
+              f"the KITTI frames ({name}) did not go through the kernels")
+    # the city-feature run as every course is held; the published run's
+    # numbers are recorded (its odometry leaves the course)
+    check_shapes_tabled("kitti", runs["city_features"][6])
+    check(c["dropped"] == 0, f"{c['dropped']} keyframes dropped")
+    check(c["finite"], "non-finite pose on the KITTI sequence")
+    check(c["ate_map_m"] < KITTI_ATE_LIMIT,
+          f"KITTI map-frame ATE {c['ate_map_m']:.4f} m ≥ {KITTI_ATE_LIMIT} m")
+    check(np.isfinite(c["rpe_d10"]).all(), "RPE is not finite")
+    check(p["cpu_max_abs_pose_diff"] < CPU_AGREE,
+          f"KITTI card vs CPU {p['cpu_max_abs_pose_diff']:.3g} ≥ {CPU_AGREE}")
+    check((6144, 16384, 5) in runs["published"][6], "the KITTI frame's surf shape did not occur")
+    return out
+
+
 def ptxas_summary(lines):
     """One line of the compiler's per-kernel resource report: the most
     registers a thread, the most static shared memory, the spills."""
@@ -2864,18 +3437,20 @@ def ptxas_summary(lines):
             f"{sum(spills)} bytes")
 
 
-def city_phases():
-    """Phases city, persist and merge, with their temporary files."""
+def city_phases(run):
+    """Phases city, ndt, persist and merge, with their temporary files
+    (``run(name, fn, *args)`` runs and times a phase)."""
     shutil.rmtree(TMP, ignore_errors=True)
     os.makedirs(TMP)
     try:
         course = CityCourse()
-        city, holder = phase_city(course)
-        persist, checkpoint = phase_persist(course, holder)
-        sessions = phase_merge(course, checkpoint)
+        city, holder = run("city", phase_city, course)
+        ndt = run("ndt", phase_ndt, course, holder)
+        persist, checkpoint = run("persist", phase_persist, course, holder)
+        sessions = run("merge", phase_merge, course, checkpoint)
     finally:
         shutil.rmtree(TMP, ignore_errors=True)
-    return city, persist, sessions
+    return city, ndt, persist, sessions
 
 
 def main(argv=None):
@@ -2927,11 +3502,13 @@ def main(argv=None):
     reboot = run("reboot", phase_reboot, loop_traj, loop_scans, first_run)
     del first_run
     asyn = run("async", phase_async, loop_traj, loop_scans, be)
+    icp = run("icp", phase_icp, loop_traj, loop_scans)
     del loop_scans
-    city, persist, sessions = run("city+persist+merge", city_phases)
+    city, ndt, persist, sessions = city_phases(run)
     lio = run("lio", phase_lio, prof)
     schur = run("schur", phase_schur)
     dual = run("dual", phase_dual)
+    kitti = run("kitti", phase_kitti)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2960,6 +3537,9 @@ def main(argv=None):
         "launches_reboot_from_disk": persist["knn_launches"],
         "launches_align_sessions": sessions["knn_launches"],
         "launches_dual": dual["knn_launches"],
+        "launches_icp": icp["knn_launches"],
+        "launches_kitti": kitti["knn_launches"],
+        "launches_ndt": 0,
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": surf["ms"], "plain_ms": surf["plain_ms"], "bound_ms": surf["bound_ms"],
         "bound_by": surf["bound_by"], "library_ms": surf["library_ms"],
@@ -2975,6 +3555,9 @@ def main(argv=None):
            {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in CITY_SHAPES},
         **{"dual_" + name.split()[-2] + "_" + name.split()[-1].replace("=", ""):
            {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in DUAL_SHAPES},
+        **{"kitti_" + name.split()[1] + "_" + name.split()[-2] + "_"
+           + name.split()[-1].replace("=", ""):
+           {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in KITTI_SHAPES},
     }, {
         "name": "knn_merge",
         "route": "cuda",
@@ -2990,6 +3573,9 @@ def main(argv=None):
         "launches_reboot_from_disk": persist["knn_merge_launches"],
         "launches_align_sessions": sessions["knn_merge_launches"],
         "launches_dual": dual["knn_merge_launches"],
+        "launches_icp": icp["knn_merge_launches"],
+        "launches_kitti": kitti["knn_merge_launches"],
+        "launches_ndt": 0,
         "max_abs_err": merge["max_abs_err"],
         "ms": merge["ms"], "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
         "bound_by": merge["bound_by"], "library_ms": merge["library_ms"],
@@ -3010,6 +3596,9 @@ def main(argv=None):
         "launches_reboot_from_disk": persist["projector_launches"],
         "launches_align_sessions": sessions["projector_launches"],
         "launches_dual": dual["projector_launches"],
+        "launches_icp": icp["projector_launches"],
+        "launches_kitti": kitti["projector_launches"],
+        "launches_ndt": ndt["projector_launches"],
         "max_abs_err": proj["max_abs_err"],
         "ms": proj["ms"], "plain_ms": proj["plain_ms"], "bound_ms": proj["bound_ms"],
         "bound_by": proj["bound_by"], "library_ms": proj["library_ms"],
@@ -3027,7 +3616,8 @@ def main(argv=None):
             json.dump({"card": smi, "build": info, "kernel": kernel, "projector": proj, "slice": sl,
                        "profile": prof, "backend": be, "reboot": reboot, "async": asyn,
                        "city": city, "persist": persist, "merge": sessions, "lio": lio,
-                       "schur": schur, "dual": dual, "phase_seconds": seconds,
+                       "schur": schur, "dual": dual, "icp": icp, "ndt": ndt, "kitti": kitti,
+                       "phase_seconds": seconds,
                        "projector_jacobi": jacobi,
                        "seconds": time.perf_counter() - t_start},
                       fh, indent=1)

@@ -1,5 +1,5 @@
 from .simulator import SimWorld, make_sim_world, simulate_scan, simulate_scan_moving  # noqa: F401
-from .synthetic import make_trajectory  # noqa: F401
+from .synthetic import SyntheticWorld, make_trajectory, make_world, scan_at  # noqa: F401
 from .city import (  # noqa: F401
     DEFAULT_ROUTE,
     HDL64,

@@ -1,13 +1,19 @@
-"""Trajectory evaluation: Umeyama alignment and ATE statistics.
+"""Trajectory evaluation: ATE / RPE statistics and KITTI-format trajectory IO.
 
-Counterpart of ``lmsf_slam_tpu/evaluation/metrics.py`` (``umeyama_alignment``
-and ``ate_stats``; host numpy in float64, as there).
+Counterpart of ``lmsf_slam_tpu/evaluation/metrics.py``: Umeyama SE(3)
+alignment → absolute trajectory error (host numpy in float64, as there),
+relative pose error over a fixed frame delta, and KITTI's 3×4 row-major pose
+files. RPE and the trajectory files go through the port's SE(3) in float32 on
+the CPU, as the reference's go through its float32 ``se3``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from ..common import se3
 
 
 class TrajectoryStats(NamedTuple):
@@ -72,3 +78,38 @@ def ate_stats(est_poses: np.ndarray, gt_poses: np.ndarray, align: bool = True) -
         p_est = p_est @ R.T + t
     err = np.linalg.norm(p_est - p_gt, axis=1)
     return TrajectoryStats.from_errors(err)
+
+
+def _poses(a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def rpe_stats(est_poses: np.ndarray, gt_poses: np.ndarray, delta: int = 1) -> TrajectoryStats:
+    """Relative pose (translation) error over a fixed frame delta."""
+    est, gt = _poses(est_poses), _poses(gt_poses)
+    de = se3.pose_between(est[:-delta], est[delta:])
+    dg = se3.pose_between(gt[:-delta], gt[delta:])
+    err = torch.linalg.vector_norm(se3.pose_trans(se3.pose_between(dg, de)), dim=-1)
+    return TrajectoryStats.from_errors(err.numpy())
+
+
+def save_kitti_trajectory(poses: np.ndarray, path: str):
+    """Write (N,7) poses as KITTI 3×4 row-major lines."""
+    mats = se3.pose_to_matrix(_poses(poses)).numpy()[:, :3, :]
+    np.savetxt(path, mats.reshape(-1, 12), fmt="%.9e")
+
+
+def load_kitti_trajectory(path: str) -> np.ndarray:
+    """Read KITTI 3×4 row-major pose lines into (N,7) float32 poses."""
+    return kitti_rows_to_poses(np.loadtxt(path).reshape(-1, 3, 4))
+
+
+def kitti_rows_to_poses(rows: np.ndarray, conjugate: np.ndarray | None = None) -> np.ndarray:
+    """(N,3,4) row-major pose rows → (N,7) float32 poses, optionally
+    conjugated as ``conjugate⁻¹ · T · conjugate`` (in float64, before the
+    rounding to float32)."""
+    mats = np.concatenate(
+        [rows, np.tile(np.array([[[0, 0, 0, 1.0]]]), (rows.shape[0], 1, 1))], axis=1)
+    if conjugate is not None:
+        mats = np.linalg.inv(conjugate) @ mats @ conjugate
+    return se3.matrix_to_pose(torch.as_tensor(mats, dtype=torch.float32)).numpy()

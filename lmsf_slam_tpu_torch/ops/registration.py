@@ -1,12 +1,13 @@
 """Scan-to-map registration as a Gauss-Newton loop on torch tensors.
 
 Counterpart of ``lmsf_slam_tpu/ops/registration.py`` (``register_edge_surf``,
-``register_point_to_plane``, ``register_and_score``, ``evaluate_alignment``
-and their helpers): 5-NN PCA line / plane fits, point-to-line and
-point-to-plane residuals, huber weights, optional trimmed GN, the degeneracy
-projector of JᵀJ and the κ-penalised 6×6 Cholesky step; and the alignment
-evaluator (score and overlap of a scan against a map) that gates loop
-closures, relocalization and localization.
+``register_point_to_plane``, ``register_and_score``, ``register_ndt``,
+``evaluate_alignment`` and their helpers): 5-NN PCA line / plane fits,
+point-to-line and point-to-plane residuals, huber weights, optional trimmed
+GN, the degeneracy projector of JᵀJ and the κ-penalised 6×6 Cholesky step;
+NDT's whitened point-to-distribution residuals over the DIRECT7 voxel
+neighbourhood; and the alignment evaluator (score and overlap of a scan
+against a map) that gates loop closures, relocalization and localization.
 
 The reference runs the loop as one ``lax.scan`` with ``lax.cond`` around the
 association and the projector. Here the loop is a Python loop over a static
@@ -28,7 +29,7 @@ import torch
 
 from ..common import se3
 from ..common.pointcloud import PointBatch
-from . import mat3, neighbors, projector
+from . import mat3, neighbors, projector, voxel
 
 
 class RegistrationParams(NamedTuple):
@@ -317,6 +318,107 @@ def register_and_score(
     reg = register_edge_surf(src_edge, src_surf, map_edge, map_surf, init_pose, params)
     score, overlap = evaluate_alignment(src_surf, map_surf, reg.pose, min_overlap=min_overlap)
     return reg, score, overlap
+
+
+# ---------------------------------------------------------------------------
+# NDT (point-to-distribution)
+# ---------------------------------------------------------------------------
+
+
+class NdtParams(NamedTuple):
+    max_iters: int = 16
+    resolution: float = 1.0
+    max_voxels: int = 16384
+    degen_thresh: float = 10.0  # absolute eigenvalue floor of JᵀJ
+    damping: float = 1e-3
+    trans_converged: float = 5e-4
+    rot_converged: float = 1e-3
+    # trust region: the quadratic model is only valid within a voxel, so the
+    # per-iteration step is clamped (standard NDT practice)
+    max_step_trans: float = 0.5
+    max_step_rot: float = 0.15
+
+
+def _ndt_projector(H, params: NdtParams):
+    """NDT's degeneracy projector: the eigenvectors of H + damping·I above
+    the absolute floor ``degen_thresh`` (``nmatch=None``). On a card this is
+    the projector kernel, so the loop reads nothing back to the host; on the
+    CPU ``torch.linalg.eigh``. Returns (P float64, n_con int32)."""
+    return projector.degeneracy_projector(H, None, params.damping, 0.0, params.degen_thresh)
+
+
+def register_ndt(
+    src: PointBatch,
+    gaussians,
+    init_pose: torch.Tensor,
+    params: NdtParams = NdtParams(),
+) -> RegistrationResult:
+    """NDT-style GN: residual rᵢ = W_v (p_world − μ_v) with W_v = Σ_v^{-1/2}.
+
+    ``gaussians`` comes from ``voxel.voxel_gaussians`` on the map cloud. Each
+    point meets its own voxel and the 6 face neighbours (DIRECT7), each
+    weighted by its Gaussian likelihood; three whitened rows a pair. The
+    projector is refreshed every other iteration while the solve runs (the
+    voxel association drifts slowly), the step is clamped to the trust region,
+    and, as in :func:`register_edge_surf`, the loop is a Python loop over
+    ``max_iters`` whose conditionals are selects, so nothing is read back.
+    """
+    src = _nan_to_num_pb(src)
+    dev = init_pose.device
+    eye = torch.eye(6, dtype=torch.float32, device=dev)
+    eye64 = eye.to(torch.float64)
+    # whitening factor per voxel: Σ^{-1/2} = U diag(λ^{-1/2}) Uᵀ
+    eigval, eigvec = mat3.sym_eigh3(gaussians["covs"])
+    inv_sqrt = eigvec * torch.rsqrt(torch.clamp(eigval, min=1e-6))[:, None, :]
+    W_all = torch.einsum("vik,vjk->vij", inv_sqrt, eigvec)
+
+    pose = init_pose.to(torch.float32)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    n_con = torch.zeros((), dtype=torch.int32, device=dev)
+    P = eye64
+    nmatch = cost = None
+    for i in range(params.max_iters):
+        R = se3.quat_to_matrix(se3.pose_quat(pose))
+        p_w = se3.pose_apply(pose, src.xyz)
+        slot, found = voxel.voxel_lookup7(gaussians, p_w)  # (N,7)
+        slot = slot.long()
+        mu = gaussians["means"][slot]  # (N,7,3)
+        Wv = W_all[slot]  # (N,7,3,3)
+        valid = src.mask[:, None] & found
+        r3 = torch.einsum("nvij,nvj->nvi", Wv, p_w[:, None, :] - mu)  # (N,7,3)
+        w = valid.to(torch.float32) * torch.exp(-0.5 * torch.sum(r3 * r3, dim=-1))
+        # right perturbation: δr3 row i = ω·(p × (WR)ᵢ) + (WR)ᵢ·v
+        WR = torch.einsum("nvij,jk->nvik", Wv, R)
+        Jrot = torch.linalg.cross(src.xyz[:, None, None, :].expand_as(WR), WR, dim=-1)
+        J = torch.cat([Jrot, WR], dim=-1).reshape(-1, 6)  # one row a (point, voxel, axis)
+        wr = w[:, :, None].expand(-1, -1, 3).reshape(-1)
+        H = (J * wr[:, None]).T @ J
+        g = J.T @ (r3.reshape(-1) * wr)
+        if i % 2 == 0:
+            P_new, n_con_new = _ndt_projector(H, params)
+            P = torch.where(done, P, P_new)
+            n_con = torch.where(done, n_con, n_con_new)
+        penalty = (1e7 * (eye64 - P)).to(torch.float32)
+        Hd = H + params.damping * eye + penalty
+        xi = P.to(torch.float32) @ mat3.chol_solve6(Hd, -g)
+        rot_n = torch.linalg.vector_norm(xi[:3])
+        trn_n = torch.linalg.vector_norm(xi[3:])
+        scale = torch.clamp(torch.minimum(
+            params.max_step_rot / torch.clamp(rot_n, min=1e-9),
+            params.max_step_trans / torch.clamp(trn_n, min=1e-9),
+        ), max=1.0)
+        xi = xi * scale
+        new_pose = se3.pose_retract(pose, xi)
+        small = (torch.linalg.vector_norm(xi[:3]) < params.rot_converged) & (
+            torch.linalg.vector_norm(xi[3:]) < params.trans_converged
+        )
+        pose = torch.where(done, pose, new_pose)
+        nmatch = torch.sum(torch.any(valid, dim=1), dtype=torch.int32)
+        cost = torch.sum(torch.sum(r3 * r3, dim=-1) * w) / torch.clamp(nmatch, min=1)
+        iters = iters + (~done).to(torch.int32)
+        done = done | small
+    return RegistrationResult(pose, done, iters, nmatch, cost, n_con)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """System orchestration: raw scans in → trajectory + lifelong map out.
 
-Counterpart of ``lmsf_slam_tpu/system/ml_system.py`` with
-``registration_method="feature_based"``. With one LiDAR and no IMU the frame
-is the fused branch: ``preprocess`` → ``organize_scan`` →
+Counterpart of ``lmsf_slam_tpu/system/ml_system.py``. With one LiDAR and no
+IMU the frame is the fused branch: ``preprocess`` → ``organize_scan`` →
 ``extract_loam_features`` → ``tracker_step`` in one per-frame function
-(:func:`build_fused_step`). Otherwise the frame takes the reference's split
-path: the featurize half (:func:`build_featurize`) for each LiDAR, then the
+(:func:`build_fused_step`); with ``registration_method=
+"sparse_point_plane_icp"`` the features are the preprocessed scan
+voxel-downsampled at ``icp_voxel_size`` into the surf capacity, with no edges
+(point-to-plane ICP against the local map). Otherwise the frame takes the
+reference's split path: the featurize half (:func:`build_featurize`) for each LiDAR, then the
 tracker. With several LiDARs the sub scans' extrinsics are calibrated online
 in three phases (hand-eye from per-LiDAR odometry, refinement against the
 primary's local map, then fused tracking of every LiDAR's features moved into
@@ -22,11 +24,9 @@ thread of :class:`..backend.async_backend.AsyncBackend`, and a
 / ``load`` of the lifelong database.
 
 ``SystemConfig`` carries every field of the reference's, so configurations
-move between the packages unchanged; :class:`MultiLidarSystem` rejects the
-one whose path is not ported yet (registration methods other than
-``feature_based``).
-``build_fused_step`` and :func:`read_frame` remain the front end alone, with
-no backend behind the gate.
+move between the packages unchanged. ``build_fused_step`` and
+:func:`read_frame` remain the front end alone, with no backend behind the
+gate.
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ from ..common.pointcloud import PointBatch, concat as pb_concat
 from ..ops import features as F
 from ..ops.preprocess import PreprocessParams, preprocess
 from ..ops.registration import RegistrationParams, register_edge_surf
+from ..ops.voxel import voxel_downsample
 from ..tracker.tracker import TrackerConfig, tracker_init, tracker_step
 
 
@@ -216,14 +217,24 @@ def tracker_config_for(config: SystemConfig) -> TrackerConfig:
     )
 
 
-def build_featurize(config: SystemConfig = SystemConfig(), device="cuda"):
+def build_featurize(config: SystemConfig = SystemConfig(), device="cuda",
+                    organize: Optional[bool] = None):
     """The featurize half of the per-frame step: ``featurize(xyz, mask,
     attr)`` runs preprocess → organize → LOAM features on ``device`` and
     returns ``(edge, surf, grid)`` in the sensor frame (the grid is the
     scan's range image, for carving). It launches work and reads nothing
-    back. Both the fused step and the IMU-aided frame run it."""
+    back. Both the fused step and the IMU-aided frame run it.
+
+    With ``registration_method="sparse_point_plane_icp"`` the surf cloud is
+    the preprocessed scan voxel-downsampled at ``icp_voxel_size`` into the
+    surf capacity, the edges are empty, and the range image is organized only
+    when ``organize`` (default: the backend carves, ``dynamic_carve_knn >
+    0``); else the grid is None, as in the reference."""
     f = config.feature
     device = torch.device(device)
+    icp = config.registration_method == "sparse_point_plane_icp"
+    if organize is None:
+        organize = config.lifelong.dynamic_carve_knn > 0
 
     def featurize(xyz, mask, attr):
         pb = PointBatch(
@@ -232,6 +243,10 @@ def build_featurize(config: SystemConfig = SystemConfig(), device="cuda"):
             torch.as_tensor(attr, dtype=torch.float32, device=device),
         )
         processed = preprocess(pb, config.preprocess)
+        if icp:
+            surf = voxel_downsample(processed, config.icp_voxel_size, f.surf_capacity)
+            grid = F.organize_scan(processed, rings=f.rings, width=f.width) if organize else None
+            return PointBatch.empty(f.edge_capacity, device=device), surf, grid
         grid = F.organize_scan(processed, rings=f.rings, width=f.width)
         feats = F.extract_loam_features(
             grid,
@@ -250,21 +265,27 @@ def build_featurize(config: SystemConfig = SystemConfig(), device="cuda"):
     return featurize
 
 
-def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda"):
+# the methods of the fused single-LiDAR step; any other value takes the split
+# path with LOAM features, as in the reference
+FUSED_METHODS = ("feature_based", "sparse_point_plane_icp")
+
+
+def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda",
+                     organize: Optional[bool] = None):
     """(tracker config, per-frame step) of the fused single-LiDAR path.
 
-    ``step(state, xyz, mask, attr, t)`` runs preprocess → organize →
-    features (:func:`build_featurize`) → ``tracker_step`` on ``device`` and
-    returns ``(state, TrackerOutput, edge, surf, grid)``. It launches work
-    and reads nothing back; :func:`read_frame` does the one read per frame.
+    ``step(state, xyz, mask, attr, t)`` runs preprocess → features
+    (:func:`build_featurize`, LOAM or ICP by ``registration_method``;
+    ``organize`` as there) → ``tracker_step`` on ``device`` and returns
+    ``(state, TrackerOutput, edge, surf, grid)``. It launches work and reads
+    nothing back; :func:`read_frame` does the one read per frame.
     """
-    if config.n_lidars != 1 or config.registration_method != "feature_based":
-        raise ValueError(
-            "the fused step serves one LiDAR with feature_based registration"
-        )
+    if config.n_lidars != 1 or config.registration_method not in FUSED_METHODS:
+        raise ValueError(f"the fused step serves one LiDAR with a registration method of "
+                         f"{FUSED_METHODS}")
     tracker_config = tracker_config_for(config)
     device = torch.device(device)
-    featurize = build_featurize(config, device)
+    featurize = build_featurize(config, device, organize)
 
     def step(state, xyz, mask, attr, t):
         edge, surf, grid = featurize(xyz, mask, attr)
@@ -329,10 +350,6 @@ class MultiLidarSystem:
     ):
         """``device`` is where the frame and a backend made here run; a given
         ``backend`` must keep its database on the same device."""
-        if config.registration_method != "feature_based":
-            raise NotImplementedError(
-                "not ported yet: registration methods other than feature_based "
-                "(ROADMAP.md section 1, item 14)")
         self.config = config
         self.device = torch.device(device)
         f = config.feature
@@ -341,15 +358,8 @@ class MultiLidarSystem:
         # during calibration only the primary's slice is populated
         self.tracker_config = tracker_config_for(config)
         self.tracker_state = tracker_init(self.tracker_config, self.device)
-        # one LiDAR without an IMU: the fused step; otherwise the split path,
-        # featurize each scan, then the tracker (LioTracker under IMU)
         self._lio = None
         self._enu = None  # local ENU frame, anchored by the first GNSS fix
-        self._fused_step = None
-        if n == 1 and not config.use_imu:
-            _, self._fused_step = build_fused_step(config, self.device)
-        else:
-            self._featurize = build_featurize(config, self.device)
         if config.use_imu:
             # under IMU the per-frame prediction is physically grounded, so
             # the prediction-trust gate is safe and necessary: a coherent
@@ -374,6 +384,15 @@ class MultiLidarSystem:
             from ..backend.async_backend import AsyncBackend
 
             self._async = AsyncBackend(self.backend, policy=config.async_policy)
+        # one LiDAR without an IMU: the fused step; otherwise the split path,
+        # featurize each scan, then the tracker (LioTracker under IMU). The
+        # ICP features organize a range image only for the backend's carving.
+        organize = self.backend.config.dynamic_carve_knn > 0
+        self._fused_step = None
+        if n == 1 and not config.use_imu and config.registration_method in FUSED_METHODS:
+            _, self._fused_step = build_fused_step(config, self.device, organize)
+        else:
+            self._featurize = build_featurize(config, self.device, organize)
         self._pending_gnss = None  # latest ENU fix, attached to the next keyframe
         self.gate = KeyframeGate(config.keyframe_trans, config.keyframe_rot, config.keyframe_dt)
         self.results: list[FrameResult] = []

@@ -1,1 +1,1 @@
-from .profiling import StageTimer  # noqa: F401
+from .profiling import StageTimer, device_trace  # noqa: F401

@@ -1,7 +1,8 @@
-"""Aggregated stage timers.
+"""Aggregated stage timers and a device trace.
 
-Counterpart of ``lmsf_slam_tpu/utils/profiling.py::StageTimer``: labeled
-wall-clock aggregation with mean/median/max and JSON/CSV export. Launches on
+Counterpart of ``lmsf_slam_tpu/utils/profiling.py``: ``StageTimer``, labeled
+wall-clock aggregation with mean/median/max and JSON/CSV export, and
+``device_trace``, a ``torch.profiler`` trace written to a directory. Launches on
 a card return before the device finishes, so a stage that should measure
 execution rather than enqueueing passes ``block_on`` (a tensor, a device, or
 anything true): the timer then calls ``torch.cuda.synchronize()`` before it
@@ -11,8 +12,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
@@ -83,3 +86,23 @@ class StageTimer:
             f.write(f"{label}\n")
             for x in self.samples[label]:
                 f.write(f"{x * 1e3:.3f}\n")
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """``torch.profiler`` trace of the block, host and (when a card is
+    present) device activity, written to ``log_dir/trace.json`` in Chrome's
+    trace format; yields the profiler. A no-op yielding None when
+    ``log_dir`` is None."""
+    if log_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -36,6 +36,7 @@ from tests.test_torch_lifelong import (
     DB, LIFELONG, LOOP, drifted_odometry, loop_course, reference_features,
 )
 from tests.test_torch_registration import to_port
+from tests import torch_threads  # noqa: F401
 
 WAIT = 20.0  # s, the longest any single wait below may take
 IDENT = np.array([1, 0, 0, 0, 0, 0, 0], np.float32)

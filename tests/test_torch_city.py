@@ -14,6 +14,7 @@ from lmsf_slam_tpu.datasets import city as jcity
 from lmsf_slam_tpu.datasets import simulator as jsim
 from lmsf_slam_tpu_torch.datasets import city as pcity
 from lmsf_slam_tpu_torch.datasets import simulate_scan
+from tests import torch_threads  # noqa: F401
 
 
 def seed_of(key):

@@ -32,6 +32,7 @@ from lmsf_slam_tpu_torch.datasets import SimWorld, simulate_scan
 from lmsf_slam_tpu_torch.ops import dynamic as pdyn
 from tests.test_torch_registration import to_port
 from tests.test_torch_tracker import carve_course, port_grid
+from tests import torch_threads  # noqa: F401
 
 KEY = jax.random.PRNGKey(88)
 MARGIN = 1e-4

@@ -16,6 +16,7 @@ import torch
 
 from lmsf_slam_tpu.estimator import eskf as je
 from lmsf_slam_tpu_torch.estimator import eskf as pe
+from tests import torch_threads  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-7
 G = 9.81

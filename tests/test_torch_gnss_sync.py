@@ -28,6 +28,7 @@ from lmsf_slam_tpu_torch.datasets import make_sim_world, simulate_scan_moving
 from lmsf_slam_tpu_torch.estimator import gnss as pgnss
 from lmsf_slam_tpu_torch.estimator import nmea as pnmea
 from tests.test_nmea import GGA, RMC, _cksum
+from tests import torch_threads  # noqa: F401
 
 
 def test_lla_enu_matches_reference():

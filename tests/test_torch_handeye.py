@@ -21,6 +21,7 @@ from lmsf_slam_tpu.calibration import handeye as jhe
 from lmsf_slam_tpu_torch.calibration import handeye as phe
 from lmsf_slam_tpu_torch.common import se3np
 from lmsf_slam_tpu_torch.interop import handeye_state_from_numpy
+from tests import torch_threads  # noqa: F401
 
 
 def make_motion_pairs(extrinsic, n, seed=21, noise=0.0, planar=False):

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from tests import torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "lmsf_slam_tpu_torch"
@@ -40,7 +41,7 @@ def test_port_imports_no_jax_at_run_time():
         "import chip_smoke\n"
         f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN_AT_IMPORT!r}))\n"
         "assert not bad, bad\n"
-        f"missing = sorted(set({IMU_MODULES + MULTI_MODULES!r}) - {{n[len(p.__name__) + 1:] for n in names}})\n"
+        f"missing = sorted(set({IMU_MODULES + MULTI_MODULES + TOOLING_MODULES!r}) - {{n[len(p.__name__) + 1:] for n in names}})\n"
         "assert not missing, missing\n"
         "print(len(names))\n"
     )
@@ -75,6 +76,13 @@ IMU_MODULES = ("estimator", "estimator.eskf", "estimator.preintegration", "estim
 KERNEL_MODULES = ("ops.projector",)
 # the submap Schur solve and the hand-eye calibration of several LiDARs
 MULTI_MODULES = ("parallel", "parallel.schur", "calibration", "calibration.handeye")
+
+
+# NDT's voxel statistics, the KITTI entry point and its tooling
+TOOLING_MODULES = ("ops.voxel", "ops.registration", "datasets.kitti", "datasets.synthetic",
+                   "native", "native.bindings", "evaluation.metrics", "evaluation.render",
+                   "common.databus", "utils.profiling", "entry")
+SCRIPTS = ("scripts/evaluate_torch.py", "scripts/fuse_sessions_torch.py")
 
 
 @pytest.mark.parametrize("module",
@@ -160,3 +168,48 @@ def test_every_entry_point_defaults_to_the_card():
                 seen.append(fn.__qualname__)
                 assert param.default == "cuda", (mod.__name__, fn.__qualname__, param.default)
     assert len(seen) >= 14, seen  # MultiLidarSystem, KeyframeDatabase, build_fused_step, ...
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(("." * node.level) + (node.module or ""))
+    return names
+
+
+@pytest.mark.parametrize("name", TOOLING_MODULES + SCRIPTS)
+def test_tooling_modules_and_scripts_name_no_jax(name):
+    """NDT's modules, the KITTI entry point, its tooling and the port's
+    scripts: no import statement at any depth (function bodies included)
+    names JAX or the reference package; matplotlib only inside a function."""
+    if name.endswith(".py"):
+        path = ROOT / name
+    else:
+        path = PACKAGE / (name.replace(".", "/") + ".py")
+        if not path.exists():
+            path = PACKAGE / name.replace(".", "/") / "__init__.py"
+    names = _imports(path)
+    assert names and not any(_forbidden(n) for n in names), names
+    top = [n for n in ast.parse(path.read_text()).body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    assert not any("matplotlib" in ast.dump(n) for n in top), name
+
+
+def test_scripts_import_no_jax_at_run_time():
+    code = (
+        "import runpy, sys\n"
+        f"for s in {SCRIPTS!r}:\n"
+        "    sys.argv = [s, '--help']\n"
+        "    try:\n"
+        "        runpy.run_path(s, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (s, e.code)\n"
+        f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN_AT_IMPORT + ('matplotlib',)!r}))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -23,6 +23,7 @@ from lmsf_slam_tpu_torch.interop import (
     KEYFRAME_DB_FIELDS,
     keyframe_db_from_numpy,
 )
+from tests import torch_threads  # noqa: F401
 
 EC, SC_ = 24, 40
 KW = dict(edge_capacity=EC, surf_capacity=SC_, initial_keyframes=2, mirror_min_cap=4)

@@ -18,6 +18,7 @@ from lmsf_slam_tpu.ops.pallas_knn import knn_pallas
 from lmsf_slam_tpu_torch import _build
 from lmsf_slam_tpu_torch.ops import knn as pk
 from lmsf_slam_tpu_torch.ops import neighbors as pn
+from tests import torch_threads  # noqa: F401
 
 
 def _case(Q=100, N=700, q_invalid=7, r_invalid=13, seed=0):

@@ -25,6 +25,7 @@ import lmsf_slam_tpu_torch as port
 from lmsf_slam_tpu.ops import neighbors as jn
 from lmsf_slam_tpu.ops.pallas_knn import knn_pallas
 from lmsf_slam_tpu_torch.ops import knn as pk
+from tests import torch_threads  # noqa: F401
 
 SPLITS = [1, 2, 3, 7]
 LANES = [1, 4, 8]

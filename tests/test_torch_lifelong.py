@@ -40,6 +40,7 @@ from lmsf_slam_tpu_torch.interop import (
     keyframe_db_from_numpy,
 )
 from tests.test_torch_registration import to_port
+from tests import torch_threads  # noqa: F401
 
 W = 360
 N = 40

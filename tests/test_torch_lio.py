@@ -28,6 +28,7 @@ from lmsf_slam_tpu_torch.tracker import TrackerConfig as PTC
 from tests.test_lio import SCAN_HZ, _featurize, _tracker_cfg, analytic_state, skewed_scans  # noqa: F401
 from tests.test_torch_registration import to_port, widen
 from tests.test_torch_tracker import assert_frame, widen_state
+from tests import torch_threads  # noqa: F401
 
 N_FRAMES = 4
 HANDOVER = 2  # frames before the reference's state is carried over

@@ -25,6 +25,7 @@ from lmsf_slam_tpu_torch.common import se3np
 from lmsf_slam_tpu_torch.estimator.preintegration import preintegrate as ppreintegrate
 from lmsf_slam_tpu_torch.interop import lio_states_from_numpy, preintegrated_from_numpy
 from tests.test_lio import analytic_state, make_streams
+from tests import torch_threads  # noqa: F401
 
 BG_TRUE = np.array([0.02, -0.015, 0.03], np.float32)
 

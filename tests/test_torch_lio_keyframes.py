@@ -11,6 +11,7 @@ from lmsf_slam_tpu.estimator import eskf_init_state as jeskf_init_state
 from lmsf_slam_tpu.system import MultiLidarSystem as JSystem
 from tests.test_lio import SCAN_HZ, skewed_scans  # noqa: F401
 from tests.test_torch_lio_system import anchor_velocity, imu_kw, run_port, system_configs
+from tests import torch_threads  # noqa: F401
 
 N_COMPARED = 8
 

@@ -30,6 +30,7 @@ from lmsf_slam_tpu_torch.lio import LioConfig, LioTracker
 from lmsf_slam_tpu_torch.ops.registration import RegistrationParams
 from lmsf_slam_tpu_torch.system import FeatureParams, MultiLidarSystem, SystemConfig, tracker_config_for
 from tests.test_lio import SCAN_HZ, analytic_state, skewed_scans  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 LLA = np.array([48.0, 11.0, 500.0])
 

@@ -26,6 +26,7 @@ from lmsf_slam_tpu_torch.common import se3np
 from lmsf_slam_tpu_torch.common.pointcloud import PointBatch as PPB
 from lmsf_slam_tpu_torch.ops import registration as pr
 from tests.test_torch_registration import CASES, _pose, _room, assert_result, reference_f64, to_port
+from tests import torch_threads  # noqa: F401
 
 
 def _offset(pose, dw, dt):

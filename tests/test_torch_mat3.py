@@ -18,6 +18,7 @@ import torch
 
 from lmsf_slam_tpu.ops import mat3 as jm
 from lmsf_slam_tpu_torch.ops import mat3 as pm
+from tests import torch_threads  # noqa: F401
 
 
 def _psd(kind, n, rng):

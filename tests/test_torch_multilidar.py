@@ -21,6 +21,7 @@ from lmsf_slam_tpu_torch.datasets import make_sim_world, simulate_scan
 from lmsf_slam_tpu_torch.evaluation import ate_stats
 from lmsf_slam_tpu_torch.ops.registration import RegistrationParams
 from lmsf_slam_tpu_torch.system import FeatureParams, MultiLidarSystem, SystemConfig
+from tests import torch_threads  # noqa: F401
 
 N_FRAMES = 40
 SEED = 33

@@ -27,6 +27,7 @@ from lmsf_slam_tpu_torch.calibration import HandEyeConfig
 from lmsf_slam_tpu_torch.common import se3np
 from lmsf_slam_tpu_torch.system import MultiLidarSystem
 from tests.test_torch_multilidar import X_TRUE, dual_config, dual_scans
+from tests import torch_threads  # noqa: F401
 
 N_FRAMES = 6
 HANDEYE = dict(min_pairs=3, degeneracy_gate=0.09, min_rot_angle=0.06, screw_rot_tol=0.05,

@@ -28,6 +28,7 @@ from lmsf_slam_tpu_torch.backend import lifelong as pll
 from lmsf_slam_tpu_torch.mapping import occupancy as pocc
 from tests.test_torch_lifelong import drifted_odometry, loop_course, make_backends, reference_features
 from tests.test_torch_registration import to_port
+from tests import torch_threads  # noqa: F401
 
 KEY = jax.random.PRNGKey(77)
 CFG = dict(size=256, resolution=0.25)

@@ -33,6 +33,7 @@ from tests.test_torch_keyframe_db import (
 )
 from tests.test_torch_lifelong import assert_same_decisions, make_backends
 from tests.test_torch_registration import to_port
+from tests import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CITY_DB = os.path.join(ROOT, "eval_out_city", "city_db.npz")

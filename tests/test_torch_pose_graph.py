@@ -21,6 +21,7 @@ from lmsf_slam_tpu.backend import pose_graph as jpg
 from lmsf_slam_tpu_torch.backend import pose_graph as ppg
 from lmsf_slam_tpu_torch.common import se3np
 from tests.test_torch_registration import reference_f64
+from tests import torch_threads  # noqa: F401
 
 VP = EP = 64
 

@@ -16,6 +16,7 @@ from lmsf_slam_tpu.estimator import preintegration as jpre
 from lmsf_slam_tpu_torch.estimator import preintegration as ppre
 from lmsf_slam_tpu_torch.interop import preintegrated_from_numpy
 from tests.test_lio import analytic_state, make_streams
+from tests import torch_threads  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-7
 

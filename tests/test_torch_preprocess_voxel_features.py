@@ -26,6 +26,7 @@ from lmsf_slam_tpu_torch.datasets import make_sim_world, make_trajectory, simula
 from lmsf_slam_tpu_torch.ops import features as pf
 from lmsf_slam_tpu_torch.ops import preprocess as pp
 from lmsf_slam_tpu_torch.ops import voxel as pv
+from tests import torch_threads  # noqa: F401
 
 W = 360
 

@@ -23,6 +23,7 @@ import chip_smoke
 from lmsf_slam_tpu.ops import registration as jr
 from lmsf_slam_tpu_torch.ops import projector as pj
 from lmsf_slam_tpu_torch.ops import registration as tr
+from tests import torch_threads  # noqa: F401
 
 PARAMS = tr.RegistrationParams()
 ARGS = (PARAMS.damping, PARAMS.degen_rel, PARAMS.degen_thresh)

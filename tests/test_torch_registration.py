@@ -31,6 +31,7 @@ from lmsf_slam_tpu.ops import voxel as jv
 from lmsf_slam_tpu_torch.common.pointcloud import PointBatch as PPB
 from lmsf_slam_tpu_torch.ops import registration as pr
 from tests.test_features import synthetic_room_scan
+from tests import torch_threads  # noqa: F401
 
 FLAGS = ("converged", "iterations", "num_matches", "n_constrained")
 

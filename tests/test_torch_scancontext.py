@@ -20,6 +20,7 @@ from lmsf_slam_tpu.common.pointcloud import PointBatch as JPB
 from lmsf_slam_tpu.ops import scancontext as jsc
 from lmsf_slam_tpu_torch.common.pointcloud import PointBatch as PPB
 from lmsf_slam_tpu_torch.ops import scancontext as psc
+from tests import torch_threads  # noqa: F401
 
 
 def cloud(seed, n=3000, spread=30.0):

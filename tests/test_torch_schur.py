@@ -20,6 +20,7 @@ from lmsf_slam_tpu_torch.backend import pose_graph as ppg
 from lmsf_slam_tpu_torch.common import se3np
 from lmsf_slam_tpu_torch.interop import submap_partition_from_numpy
 from lmsf_slam_tpu_torch.parallel import schur as psc
+from tests import torch_threads  # noqa: F401
 
 AGREE = 1e-4
 

@@ -20,6 +20,7 @@ from lmsf_slam_tpu.backend import lifelong as jll
 from lmsf_slam_tpu_torch.backend import keyframe_db as pdb
 from lmsf_slam_tpu_torch.backend import lifelong as pll
 from tests.test_torch_schur import geo_err
+from tests import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CITY_DB = os.path.join(ROOT, "eval_out_city", "city_db.npz")

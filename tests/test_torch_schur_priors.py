@@ -6,6 +6,7 @@ Tolerances as in ``tests/test_torch_schur.py``.
 import numpy as np
 
 from tests.test_torch_schur import assert_same, chain_graph, geo_err, replicated, schur_both
+from tests import torch_threads  # noqa: F401
 
 
 def test_schur_unary_priors_match_replicated():

@@ -19,6 +19,7 @@ from lmsf_slam_tpu.common import se3np as jse3np
 from lmsf_slam_tpu_torch.common import pointcloud as ppc
 from lmsf_slam_tpu_torch.common import se3 as pse3
 from lmsf_slam_tpu_torch.common import se3np as pse3np
+from tests import torch_threads  # noqa: F401
 
 ATOL = 1e-6
 RTOL = 1e-6

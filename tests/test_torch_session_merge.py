@@ -27,6 +27,7 @@ from lmsf_slam_tpu_torch.backend import LoopConfig as PLoopConfig
 from lmsf_slam_tpu_torch.backend import session_merge as psm
 from lmsf_slam_tpu_torch.common import se3np
 from tests.test_torch_registration import to_port
+from tests import torch_threads  # noqa: F401
 
 KEY = jax.random.PRNGKey(7)
 NE, NS = 128, 512

@@ -52,6 +52,7 @@ from lmsf_slam_tpu_torch.system import ml_system as psys
 from lmsf_slam_tpu_torch.tracker import tracker_init
 from tests.test_torch_lifelong import LIFELONG, LOOP
 from tests.test_torch_tracker import assert_frame, reference_step64, sim_course, widen_state
+from tests import torch_threads  # noqa: F401
 
 N_FRAMES = 6
 FEATURE = dict(rings=16, width=360, edges_per_sector=2, surfs_per_sector=8)
@@ -258,10 +259,8 @@ def assert_same_frames(want, got):
 
 def test_unported_system_paths_are_rejected(tmp_path):
     _, pcfg = _system_configs()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        MultiLidarSystem(pcfg._replace(registration_method="sparse_point_plane_icp"),
-                         device="cpu")
-    # what raised before it was ported now runs: several LiDARs
+    # what raised before it was ported now runs: the ICP method (one frame
+    # here; tests/test_torch_icp_system.py holds it to the reference), several LiDARs
     # (tests/test_torch_multilidar.py drives them), the IMU-aided front end
     # (tests/test_torch_lio_system.py), the worker-thread backend, save and
     # load (the database lands on the device that load names)
@@ -284,6 +283,13 @@ def test_unported_system_paths_are_rejected(tmp_path):
     assert loaded.occupancy_grid() is None
     system._async.close()
     assert psys.FrameResult._fields == jsys.FrameResult._fields
+    icp = MultiLidarSystem(pcfg._replace(registration_method="sparse_point_plane_icp"),
+                           device="cpu")
+    assert icp._fused_step is not None
+    _, scans = sim_course(1)
+    res = icp.process(_port_scan(scans[0]), 0.0)
+    assert np.isfinite(res.odom_pose).all() and np.isfinite(res.map_pose).all()
+    assert res.is_keyframe and icp.backend.db.n_keyframes == 1
 
 
 def test_yaml_config_matches_reference(tmp_path):

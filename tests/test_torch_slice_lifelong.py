@@ -19,6 +19,7 @@ from lmsf_slam_tpu_torch.evaluation import metrics as pmetrics
 from lmsf_slam_tpu_torch.system import MultiLidarSystem
 from tests.test_torch_lifelong import loop_course
 from tests.test_torch_slice import ReferenceSystem, _port_scan, _system_configs
+from tests import torch_threads  # noqa: F401
 
 
 class ReferenceLifelongSystem(ReferenceSystem):

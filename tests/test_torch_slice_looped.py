@@ -15,6 +15,7 @@ from lmsf_slam_tpu_torch.evaluation import metrics as pmetrics
 from lmsf_slam_tpu_torch.system import MultiLidarSystem
 from tests.test_torch_lifelong import carry_database, loop_course
 from tests.test_torch_slice import ReferenceSystem, _run_both, _system_configs, assert_same_frames
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

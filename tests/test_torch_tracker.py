@@ -32,6 +32,7 @@ from lmsf_slam_tpu_torch.ops.registration import RegistrationParams as PRP
 from lmsf_slam_tpu_torch.tracker import localmap as plm
 from lmsf_slam_tpu_torch.tracker import tracker as pt
 from tests.test_torch_registration import FLAGS, to_port, widen
+from tests import torch_threads  # noqa: F401
 
 W = 360
 N_FRAMES = 10
