@@ -18,7 +18,8 @@ Phases, one line each:
              384×3840, 384×4224, 1536×10752, 1536×15360, 1536×16896; the
              city's ten; the fused two-LiDAR frame's 768×8192; the KITTI
              configuration's 6144×16384, 6144×61440, 6144×67584 and, with the
-             city's features, 3072×33792) and
+             city's features, 3072×33792; phase mesh's 64×128, 384×384,
+             1536×1536, 576×8192 and 1152×16384) and
              at the corner cases (masked queries, a size that is no multiple
              of slice or tile, duplicated references, Q=1, N=1, no valid
              reference, no valid query, k above the number of valid
@@ -206,9 +207,31 @@ Phases, one line each:
              ATE recorded: it leaves the course, as the reference does);
              ``load_poses`` gives back the course within 1e-4 m
              and the reader's sweep times the simulator's within half a
-             column.
+             column;
+17. mesh   — the multi-device modules (``parallel/``): (a) this process as
+             a process group of one rank on ``cuda:0`` (NCCL, made by
+             ``multihost.initialize_from_env`` from the ``LMSF_*``
+             variables): ``entry.dryrun_multichip(1)``, the noisy 24-vertex
+             ring of ``tests/test_parallel.py`` through the edge-sharded solve
+             against ``optimize_pose_graph`` (5e-4), then the phase's path:
+             the ring and bench.py's 1905-vertex graph through the sharded
+             PCG solve (12 GN iterations of bench.py's 128 PCG) in float32
+             and float64, its padded graph through the Schur solve over the
+             mesh at 16 submaps (bench.py's 60 GN iterations in float32, 12 in
+             float64); ``register_frames_batched``
+             on 8 scan pairs of the looped course; ``offline_map_sequence``
+             of 64 VLP-16 frames (16 × 900 to 40 m) on the 7 m half-arc of
+             ``tests/test_offline_mapping.py``'s world as one chunk; (b) four
+             ranks spawned on the one card (gloo) running the same path, the
+             sequence in 4 chunks of 16. Checks: every rank returns the same
+             result; four ranks hold one by chi2 (5e-3) and ATE (1e-3 m) in
+             float32 and by poses (1e-4) in float64, the batched poses within
+             1e-6 m; offline ATE under 0.25 m with at least 2 of 3 stitches
+             converged and every chunk starting at identity; every rank
+             through the k-NN and projector kernels, whose launches it prints
+             a rank; every k-NN shape held by phase kernel.
 
-The phases run in the order 1–7, 14, 8, 15, 9–13, 16. After each phase a
+The phases run in the order 1–7, 14, 8, 15, 9–13, 16, 17. After each phase a
 line says how many of its projector matrices took the
 Jacobi path (``JacobiTally``: the kernel's sweeps, kept on the card and read
 once at the phase's end). Temporary files go under ``build/chip_smoke_tmp``
@@ -317,6 +340,17 @@ DUAL_SHAPES = [
 # (the default adjacent_window=5); the edge sides are the city's and the
 # backend's shapes; with the city's feature settings, loop verification's surf
 # side on 11 keyframes
+# phase mesh: the dry run's random clouds (64 points against 128), scan i+1's
+# features against scan i's on the looped course (384 edge, 1536 surf), and
+# the offline course's frame and stitch against the tracker's maps (6 edge and
+# 12 surf features a ring sector: 576 and 1152)
+MESH_SHAPES = [
+    ("mesh dryrun 64x128 k=5", 64, 128, 5),
+    ("mesh batched edge 384x384 k=5", 384, 384, 5),
+    ("mesh batched surf 1536x1536 k=5", 1536, 1536, 5),
+    ("mesh offline edge 576x8192 k=5", 576, 8192, 5),
+    ("mesh offline surf 1152x16384 k=5", 1152, 16384, 5),
+]
 KITTI_SHAPES = [
     ("kitti frame surf 6144x16384 k=5", 6144, 16384, 5),
     ("kitti loc10 surf 6144x61440 k=5", 6144, 61440, 5),
@@ -633,7 +667,7 @@ def phase_kernel(K):
         ("k>valid 40x3000 k=8 S=6", 40, 3000, 8, 5, 5, False, 6),
     ] + [(name, Q, N, 5, 0, 0.7, False, None) for name, Q, N in BACKEND_SHAPES] + [
         (name, Q, N, k, 0, 0.7, False, None)
-        for name, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES]
+        for name, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES + MESH_SHAPES]
     results = {}
     timed = {}
     for i, (name, Q, N, k, qi, valid, dup, forced) in enumerate(cases):
@@ -647,7 +681,7 @@ def phase_kernel(K):
                "slice_len": slice_len, "blocks": blocks, "max_abs_err": err,
                "near_tie_rows": n_tie, "equals_single_scan_model": small}
         results[name] = row
-        if name.startswith(("edge", "surf", "nn1", "loop", "loc", "city", "dual", "kitti")):
+        if name.startswith(("edge", "surf", "nn1", "loop", "loc", "city", "dual", "kitti", "mesh")):
             timed[name] = (q, qm, r, rm, k)
             continue
         log("kernel", f"{name}: S={S} (slices of {slice_len}), {blocks} blocks; agrees with "
@@ -1286,8 +1320,9 @@ def backend_config():
     )
 
 
-def make_loop_course(seed=LOOP_SEED, n_frames=LOOP_FRAMES):
-    """Ground truth and scans (in host memory) of the closed course."""
+def make_loop_course(seed=LOOP_SEED, n_frames=LOOP_FRAMES, n_scans=None):
+    """Ground truth and scans (in host memory) of the closed course; with
+    ``n_scans``, the scans of its first ``n_scans`` frames only."""
     from lmsf_slam_tpu_torch.datasets import make_sim_world, make_trajectory, simulate_scan
 
     rng = np.random.default_rng(seed)
@@ -1295,7 +1330,7 @@ def make_loop_course(seed=LOOP_SEED, n_frames=LOOP_FRAMES):
     traj = make_trajectory(n_frames, radius=9.0, loop=True, device="cpu").numpy().copy()
     traj[:, 6] = 1.4
     scans = [simulate_scan(world, traj[i], rng, rings=16, width=900, max_range=60.0, noise=0.01,
-                           device="cpu") for i in range(n_frames)]
+                           device="cpu") for i in range(n_scans or n_frames)]
     return traj, scans
 
 
@@ -2925,7 +2960,7 @@ def tabled_shapes():
     """The k-NN shapes (Q, N, k) that phase kernel holds and times."""
     return ({(384, 8192, 5), (1536, 16384, 5), (1920, 24576, 1)}
             | {(Q, N, 5) for _, Q, N in BACKEND_SHAPES}
-            | {(Q, N, k) for _, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES})
+            | {(Q, N, k) for _, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES + MESH_SHAPES})
 
 
 @contextlib.contextmanager
@@ -3421,6 +3456,359 @@ def phase_kitti():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: beyond one device (parallel/): one rank, then four on the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_THREADS = 2  # torch intra-op threads of each spawned rank (8 host cores)
+MESH_TIMEOUT = 600.0  # s: the four-rank launch, its group's creation and every collective
+RING_PARAMS = dict(gn_iters=8, pcg_iters=48)  # tests/test_parallel.py's budget
+RING_AGREE = 5e-4  # sharded vs replicated, tests/test_parallel.py's bound
+# bench.py's graph through the sharded PCG solve: bench.py's PCG depth over the
+# first 12 of its 60 GN iterations, in float32 and float64 (at four ranks on
+# one card every PCG iteration waits for a gloo all-reduce staged through the
+# host); through the Schur solve: bench.py's 60 GN iterations in float32 (its
+# ATE bound holds there), 12 in float64
+SHARDED_PARAMS = dict(gn_iters=12, pcg_iters=128)
+SCHUR_MESH_PARAMS = dict(gn_iters=60, pcg_iters=128)
+MESH_F64_ITERS = 12  # GN iterations of the float64 Schur solve, held pose by pose
+MESH_F64_AGREE = 1e-4  # m / rad, four ranks vs one in float64
+MESH_BATCH_FRAMES = 8  # scan pairs of the looped course through register_frames_batched
+MESH_BATCH_AGREE = 1e-6  # m, four ranks vs one
+# the world of tests/test_offline_mapping.py's sizes (extent 18 m, 18 boxes, 40
+# cylinders) and seed, drawn by numpy's generator (the reference draws its own)
+OFFLINE_SEED = 44
+OFFLINE_FRAMES = 64  # on its 7 m half-arc, at VLP-16 width (16 × 900 to 40 m)
+OFFLINE_ATE_LIMIT = 0.25  # m, tests/test_offline_mapping.py's bound
+OFFLINE_MIN_STITCHES = MESH_RANKS - 2  # converged stitches of the MESH_RANKS - 1
+
+
+def mesh_ring(n=24, noise=0.05, seed=0):
+    """``tests/test_parallel.py``'s noisy ring (24 vertices with its closing
+    edge, σ 0.05 a component, √w 10) with the odometry chained from the noisy
+    edges: (ground truth, graph), float32."""
+    from lmsf_slam_tpu_torch.common import se3np
+
+    rng = np.random.default_rng(seed)
+    step = se3np.se3_exp(np.array([0.0, 0.0, 2 * np.pi / n, 2.0, 0.0, 0.0]))
+    gt = [se3np.pose_identity()]
+    for _ in range(n - 1):
+        gt.append(se3np.pose_compose(gt[-1], step))
+    eij = np.array([(i, (i + 1) % n) for i in range(n)], np.int32)
+    ez = np.stack([np.float32(se3np.pose_compose(se3np.pose_between(gt[i], gt[j]),
+                                                 se3np.se3_exp(rng.normal(0, noise, 6))))
+                   for i, j in eij])
+    init = [gt[0]]
+    for e in range(n - 1):
+        init.append(se3np.pose_compose(init[-1], ez[e]))
+    graph = dict(poses=np.float32(np.stack(init)), vmask=np.ones(n, bool), edges_ij=eij,
+                 edges_z=ez, edges_sqrtw=np.full((n, 6), 10.0, np.float32),
+                 emask=np.ones(n, bool))
+    return np.float32(np.stack(gt)), graph
+
+
+def mesh_inputs():
+    """Everything both runs of phase mesh take, made once: the ring,
+    bench.py's graph, the first scan pairs of the looped course featurized on
+    the card, and the offline-mapping course's feature scans (rendered and
+    featurized on the card); all as host arrays, which a spawned rank can
+    receive."""
+    import torch
+
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.datasets import make_sim_world, make_trajectory, simulate_scan
+    from lmsf_slam_tpu_torch.ops import features as F
+    from lmsf_slam_tpu_torch.ops.registration import RegistrationParams
+    from lmsf_slam_tpu_torch.system import build_featurize
+    from lmsf_slam_tpu_torch.tracker import TrackerConfig
+
+    def host(pbs):
+        return tuple(torch.stack([getattr(p, k) for p in pbs]).cpu().numpy()
+                     for k in ("xyz", "mask", "attr"))
+
+    ring_gt, ring = mesh_ring()
+    bench_gt, plain, padded = bench_graph()
+    plain = {k: v for k, v in plain.items() if k != "edges_robust"}  # every edge robust
+
+    # scan i+1 against scan i's features, from the constant-velocity guess
+    cfg = backend_config()
+    traj, scans = make_loop_course(n_scans=MESH_BATCH_FRAMES + 1)
+    featurize = build_featurize(cfg, "cuda")
+    feats = [featurize(s.xyz, s.mask, s.attr)[:2] for s in scans]
+    init = [se3np.pose_identity()] + [se3np.pose_between(traj[i - 1], traj[i])
+                                      for i in range(1, MESH_BATCH_FRAMES)]
+    batch = {"src_edge": host([f[0] for f in feats[1:]]), "src_surf": host([f[1] for f in feats[1:]]),
+             "map_edge": host([f[0] for f in feats[:-1]]), "map_surf": host([f[1] for f in feats[:-1]]),
+             "init_poses": np.float32(np.stack(init)), "params": cfg.registration,
+             "gt": np.float32(np.stack([se3np.pose_between(traj[i], traj[i + 1])
+                                        for i in range(MESH_BATCH_FRAMES)]))}
+
+    rng = np.random.default_rng(OFFLINE_SEED)
+    world = make_sim_world(rng, extent=18.0, n_boxes=18, n_cylinders=40, clear_radius=3.0)
+    otraj = make_trajectory(OFFLINE_FRAMES, radius=7.0, loop=False, device="cpu").numpy().copy()
+    otraj[:, 6] = 1.3
+    edges, surfs = [], []
+    for i in range(OFFLINE_FRAMES):
+        pb = simulate_scan(world, otraj[i], rng, rings=16, width=900, max_range=40.0, noise=0.01,
+                           device="cuda")
+        f = F.extract_loam_features(F.organize_scan(pb, rings=16, width=900),
+                                    edges_per_sector=6, surfs_per_sector=12)
+        edges.append(f.edge)
+        surfs.append(f.surf)
+    edge, surf = host(edges), host(surfs)
+    config = TrackerConfig(window=8, edge_capacity=edge[0].shape[1],
+                           surf_capacity=surf[0].shape[1], map_update_trans=0.15,
+                           registration=RegistrationParams(max_iters=8, max_corr_dist=2.0))
+    offline = {"edge": edge, "surf": surf, "config": config,
+               "stamps": np.float32(np.arange(OFFLINE_FRAMES) * 0.1),
+               "gt": np.float32(se3np.pose_between(otraj[0], otraj))}
+    return {"ring": ring, "ring_gt": ring_gt, "bench": plain, "bench_padded": padded,
+            "bench_gt": bench_gt, "batch": batch, "offline": offline}
+
+
+def mesh_work(inp):
+    """Phase mesh's path in this process, over the whole process group (one
+    rank, or each of several): the ring and bench.py's graph through the
+    edge-sharded solve in float32 and float64, bench.py's graph through the
+    Schur solve at 16 submaps over the mesh in both, ``register_frames_batched``
+    on the looped course's scan pairs and ``offline_map_sequence`` of the
+    offline course in as many chunks as ranks. The launch counts are set to 0
+    just before and read just after. Returns host arrays and numbers."""
+    import torch
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.backend.pose_graph import PoseGraphParams
+    from lmsf_slam_tpu_torch.common.pointcloud import PointBatch
+    from lmsf_slam_tpu_torch.parallel import (
+        make_mesh,
+        optimize_pose_graph_schur,
+        optimize_pose_graph_sharded,
+        register_frames_batched,
+    )
+    from lmsf_slam_tpu_torch.parallel.offline_mapping import offline_map_sequence
+
+    mesh = make_mesh()
+    dev = mesh.device
+    ms = {}
+
+    def clock(name, fn):  # host clock around a call that ends in a read-back
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def sharded(g, params, dtype):
+        p, st = optimize_pose_graph_sharded(
+            torch.as_tensor(g["poses"], dtype=dtype, device=dev), g["vmask"], g["edges_ij"],
+            g["edges_z"], g["edges_sqrtw"], g["emask"], mesh, params=PoseGraphParams(**params))
+        return p.cpu().numpy(), [float(st.chi2_initial), float(st.chi2_final)], int(st.iterations)
+
+    def schur(params, dtype):
+        kw = dict(inp["bench_padded"])
+        poses = torch.as_tensor(kw.pop("poses"), dtype=dtype, device=dev)
+        p, st = optimize_pose_graph_schur(poses, **kw, n_submaps=SCHUR_SUBMAPS, mesh=mesh,
+                                          params=PoseGraphParams(**params))
+        return p.cpu().numpy(), [float(st.chi2_initial), float(st.chi2_final)], int(st.iterations)
+
+    def pbs(d, names):
+        return [PointBatch(*(torch.as_tensor(a) for a in d[k])) for k in names]
+
+    f32, f64 = torch.float32, torch.float64
+    b, o = inp["batch"], inp["offline"]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with knn_census() as shapes:
+        out = {
+            "ring_f32": clock("ring_f32", lambda: sharded(inp["ring"], RING_PARAMS, f32)),
+            "ring_f64": clock("ring_f64", lambda: sharded(inp["ring"], RING_PARAMS, f64)),
+            "bench_f32": clock("bench_f32", lambda: sharded(inp["bench"], SHARDED_PARAMS, f32)),
+            "bench_f64": clock("bench_f64", lambda: sharded(inp["bench"], SHARDED_PARAMS, f64)),
+            "schur_f32": clock("schur_f32", lambda: schur(SCHUR_MESH_PARAMS, f32)),
+            "schur_f64": clock("schur_f64", lambda: schur(
+                dict(SCHUR_MESH_PARAMS, gn_iters=MESH_F64_ITERS), f64)),
+        }
+        res = clock("batched", lambda: register_frames_batched(
+            *pbs(b, ("src_edge", "src_surf", "map_edge", "map_surf")),
+            torch.as_tensor(b["init_poses"]), mesh, b["params"]))
+        out["batched"] = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+        res = clock("offline", lambda: offline_map_sequence(
+            mesh, *pbs(o, ("edge", "surf")), torch.as_tensor(o["stamps"]), o["config"]))
+        out["offline"] = res._asdict()
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    out.update(rank=mesh.rank, size=mesh.size, device=str(dev), ms=ms, shapes=dict(shapes),
+               launches={k: launches.get(k, 0) for k in ("knn", "knn_merge", "projector")})
+    return out
+
+
+def phase_mesh():
+    """The multi-device modules on the card: (a) this process as a world of
+    one rank (an NCCL group made by ``multihost.initialize_from_env`` from the
+    ``LMSF_*`` variables): the dry run, the ring against the replicated
+    solver, and :func:`mesh_work`; (b) four ranks spawned on the one card
+    (gloo: NCCL refuses two ranks on one card) running :func:`mesh_work`,
+    held against (a)."""
+    import torch
+    import torch.distributed as dist
+
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.backend.pose_graph import PoseGraphParams, optimize_pose_graph
+    from lmsf_slam_tpu_torch.entry import dryrun_multichip
+    from lmsf_slam_tpu_torch.evaluation import ate_stats
+    from lmsf_slam_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    inp = mesh_inputs()
+    inputs_s = time.perf_counter() - t0
+
+    # (a) one rank: this process
+    env = {"LMSF_COORDINATOR": multihost.free_tcp_address()[len("tcp://"):],
+           "LMSF_NUM_PROCESSES": "1", "LMSF_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(multihost.initialize_from_env(timeout=MESH_TIMEOUT),
+              "the LMSF_* variables made no process group")
+        backend_a = dist.get_backend()
+        _build.reset_launches()
+        with knn_census() as dry_shapes:
+            t0 = time.perf_counter()
+            dry = dryrun_multichip(1)
+            dry_ms = (time.perf_counter() - t0) * 1e3
+        dry_launches = dict(_build.launches)
+        t0 = time.perf_counter()
+        one = mesh_work(inp)
+        one_s = time.perf_counter() - t0
+        g = inp["ring"]
+        t = {k: torch.as_tensor(v, device="cuda") for k, v in g.items()}
+        rep, _ = optimize_pose_graph(**t, params=PoseGraphParams(**RING_PARAMS))
+        ring_vs_rep = float(np.max(np.abs(rep.cpu().numpy() - one["ring_f32"][0])))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (b) four ranks on the one card
+    t0 = time.perf_counter()
+    ranks = multihost.launch_local(mesh_work, MESH_RANKS, args=(inp,), timeout=MESH_TIMEOUT,
+                                   threads=MESH_THREADS)
+    four_s = time.perf_counter() - t0
+    four = ranks[0]
+
+    def poses(r, key):
+        return r[key]["poses"] if key == "offline" else (
+            r[key]["pose"] if key == "batched" else r[key][0])
+
+    keys = ("ring_f32", "ring_f64", "bench_f32", "bench_f64", "schur_f32", "schur_f64",
+            "batched", "offline")
+    replicated = all(np.array_equal(poses(r, k), poses(four, k)) for r in ranks[1:] for k in keys)
+
+    def held_f32(key, gt):  # four ranks vs one by chi2 and ATE
+        c1, c4 = one[key][1][1], four[key][1][1]
+        a1, a4 = ate_stats(one[key][0][:len(gt)], gt).rmse, ate_stats(four[key][0][:len(gt)], gt).rmse
+        return {"chi2_one": c1, "chi2_four": c4, "chi2_rel": abs(c4 / c1 - 1.0),
+                "ate_one_m": a1, "ate_four_m": a4, "ate_diff_m": abs(a4 - a1),
+                "iterations_one": one[key][2], "iterations_four": four[key][2],
+                "ms_one": one["ms"][key], "ms_four": four["ms"][key],
+                "max_abs_pose_diff": float(np.max(np.abs(one[key][0] - four[key][0])))}
+
+    def held_f64(key):
+        return {"geo_err": geo_err(one[key][0], four[key][0]), "iterations": four[key][2],
+                "ms_one": one["ms"][key], "ms_four": four["ms"][key]}
+
+    ring_gt, bench_gt = inp["ring_gt"], inp["bench_gt"]
+    solves = {"ring_f32": held_f32("ring_f32", ring_gt), "ring_f64": held_f64("ring_f64"),
+              "bench_f32": held_f32("bench_f32", bench_gt), "bench_f64": held_f64("bench_f64"),
+              "schur_f32": held_f32("schur_f32", bench_gt), "schur_f64": held_f64("schur_f64")}
+    b = inp["batch"]
+    batch_diff = float(np.max(np.abs(one["batched"]["pose"] - four["batched"]["pose"])))
+    batch_err = float(np.max(np.linalg.norm(four["batched"]["pose"][:, 4:] - b["gt"][:, 4:], axis=1)))
+    o_gt = inp["offline"]["gt"]
+    off4, off1 = four["offline"], one["offline"]
+    ate4, ate1 = ate_stats(off4["poses"], o_gt).rmse, ate_stats(off1["poses"], o_gt).rmse
+    n_stitched = int(np.sum(off4["stitch_converged"]))
+    first_off = float(np.max(np.abs(off4["chunk_poses"][:, 0, 4:])))
+    shapes = dict(dry_shapes)
+    for r in [one] + ranks:
+        for k, v in r["shapes"].items():
+            shapes[k] = shapes.get(k, 0) + v
+    by_rank = [r["launches"] for r in ranks]
+    total = {k: one["launches"][k] + sum(r[k] for r in by_rank) for k in one["launches"]}
+    out = {
+        "ranks": MESH_RANKS, "backend_one": backend_a, "inputs_s": inputs_s,
+        "one_rank_s": one_s, "four_ranks_s": four_s, "dryrun_ms": dry_ms, "dryrun_chi2": dry,
+        "dryrun_launches": {k: dry_launches.get(k, 0) for k in ("knn", "knn_merge", "projector")},
+        "ring_vs_replicated": ring_vs_rep, "replicated_over_ranks": replicated,
+        "solves": solves, "batched_max_abs_pose_diff": batch_diff,
+        "batched_converged": int(four["batched"]["converged"].sum()),
+        "batched_max_trans_err_m": batch_err, "batched_ms": [one["ms"]["batched"], four["ms"]["batched"]],
+        "offline_ate_m": ate4, "offline_stitches_converged": n_stitched,
+        "offline_chunk_start_max": first_off, "offline_one_chunk_ate_m": ate1,
+        "offline_ms": [one["ms"]["offline"], four["ms"]["offline"]],
+        "launches_one_rank": one["launches"], "launches_by_rank": by_rank, "launches": total,
+        "knn_shapes": {f"{q}x{r} k={k}": c for (q, r, k), c in sorted(shapes.items())},
+        "rank_devices": [r["device"] for r in ranks],
+    }
+    log("mesh", f"inputs {inputs_s:.1f} s; (a) one rank in this process, backend {backend_a}: "
+        f"dryrun_multichip(1) {dry_ms:.0f} ms (Schur chi2 {dry['schur_chi2'][0]:.6g} → "
+        f"{dry['schur_chi2'][1]:.6g}), the rest {one_s:.1f} s; the 24-vertex ring sharded vs "
+        f"replicated optimize_pose_graph max |Δ| {ring_vs_rep:.3g} (limit {RING_AGREE}); "
+        f"(b) {MESH_RANKS} ranks on {sorted(set(out['rank_devices']))} in {four_s:.1f} s, every "
+        f"rank's result the same: {replicated}")
+    for key, s in solves.items():
+        if "chi2_rel" in s:
+            log("mesh", f"{key}: one rank {s['ms_one']:.1f} ms, {s['iterations_one']} GN "
+                f"iterations, chi2 {s['chi2_one']:.6g}, ATE {s['ate_one_m']:.4f} m; four ranks "
+                f"{s['ms_four']:.1f} ms, {s['iterations_four']} iterations, chi2 "
+                f"{s['chi2_four']:.6g} ({s['chi2_rel']:.2g} apart, limit {SCHUR_BENCH_CHI2_RTOL}), "
+                f"ATE {s['ate_four_m']:.4f} m ({s['ate_diff_m']:.2g} apart, limit "
+                f"{SCHUR_BENCH_ATE_AGREE}); poses max |Δ| {s['max_abs_pose_diff']:.3g}")
+        else:
+            log("mesh", f"{key} ({s['iterations']} GN iterations): one rank {s['ms_one']:.1f} "
+                f"ms, four {s['ms_four']:.1f} ms, poses apart {s['geo_err']:.3g} (limit "
+                f"{MESH_F64_AGREE})")
+    log("mesh", f"register_frames_batched, {MESH_BATCH_FRAMES} scan pairs of the looped course: "
+        f"one rank {one['ms']['batched']:.1f} ms, four {four['ms']['batched']:.1f} ms, max |Δ| "
+        f"{batch_diff:.3g} (limit {MESH_BATCH_AGREE}), {out['batched_converged']} converged, "
+        f"within {batch_err:.4f} m of the true motion")
+    log("mesh", f"offline_map_sequence, {OFFLINE_FRAMES} VLP-16 frames in {MESH_RANKS} chunks: "
+        f"ATE {ate4:.4f} m (limit {OFFLINE_ATE_LIMIT}), {n_stitched} of {MESH_RANKS - 1} "
+        f"stitches converged, {four['ms']['offline']:.0f} ms; as one chunk on one rank: ATE "
+        f"{ate1:.4f} m, {one['ms']['offline']:.0f} ms")
+    log("mesh", f"launches (k-NN + merge, projector): dry run {out['dryrun_launches']}; one rank "
+        f"{one['launches']}; " + "; ".join(f"rank {i} {r}" for i, r in enumerate(by_rank))
+        + f"; k-NN shapes {out['knn_shapes']}")
+    check(backend_a == "nccl", f"one rank with a card of its own took {backend_a}, not NCCL")
+    check(replicated, "the ranks returned different results")
+    check(ring_vs_rep < RING_AGREE, f"sharded ring vs replicated {ring_vs_rep:.3g}")
+    for key, s in solves.items():
+        if "chi2_rel" in s:
+            check(np.isfinite(four[key][0]).all() and s["chi2_rel"] < SCHUR_BENCH_CHI2_RTOL
+                  and s["ate_diff_m"] < SCHUR_BENCH_ATE_AGREE,
+                  f"{key}: four ranks vs one, chi2 {s['chi2_rel']:.3g} apart, ATE "
+                  f"{s['ate_diff_m']:.3g} m apart")
+        else:
+            check(s["geo_err"] < MESH_F64_AGREE, f"{key}: four ranks vs one {s['geo_err']:.3g}")
+    check(solves["schur_f32"]["ate_four_m"] < SCHUR_ATE_LIMIT,
+          f"the Schur solve over four ranks: ATE {solves['schur_f32']['ate_four_m']:.4f} m")
+    check(batch_diff < MESH_BATCH_AGREE, f"batched registration four ranks vs one {batch_diff:.3g}")
+    check(ate4 < OFFLINE_ATE_LIMIT, f"offline mapping ATE {ate4:.4f} m ≥ {OFFLINE_ATE_LIMIT} m")
+    check(n_stitched >= OFFLINE_MIN_STITCHES,
+          f"{n_stitched} of {MESH_RANKS - 1} stitches converged, fewer than {OFFLINE_MIN_STITCHES}")
+    check(first_off < 1e-5, f"a chunk does not start at identity ({first_off:.3g})")
+    for name, c in [("one rank", one["launches"])] + [(f"rank {i}", c) for i, c in
+                                                       enumerate(by_rank)]:
+        check(c["knn"] > 0 and c["projector"] > 0, f"{name} did not go through the kernels: {c}")
+    check_shapes_tabled("mesh", shapes)
+    return out
+
+
 def ptxas_summary(lines):
     """One line of the compiler's per-kernel resource report: the most
     registers a thread, the most static shared memory, the spills."""
@@ -3509,6 +3897,7 @@ def main(argv=None):
     schur = run("schur", phase_schur)
     dual = run("dual", phase_dual)
     kitti = run("kitti", phase_kitti)
+    mesh = run("mesh", phase_mesh)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3540,6 +3929,9 @@ def main(argv=None):
         "launches_icp": icp["knn_launches"],
         "launches_kitti": kitti["knn_launches"],
         "launches_ndt": 0,
+        "launches_mesh": mesh["launches"]["knn"],
+        "launches_mesh_by_rank": [mesh["launches_one_rank"]["knn"]]
+        + [r["knn"] for r in mesh["launches_by_rank"]],
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ms": surf["ms"], "plain_ms": surf["plain_ms"], "bound_ms": surf["bound_ms"],
         "bound_by": surf["bound_by"], "library_ms": surf["library_ms"],
@@ -3558,6 +3950,9 @@ def main(argv=None):
         **{"kitti_" + name.split()[1] + "_" + name.split()[-2] + "_"
            + name.split()[-1].replace("=", ""):
            {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in KITTI_SHAPES},
+        **{"_".join(name.split()[:2]) + "_" + name.split()[-2] + "_"
+           + name.split()[-1].replace("=", ""):
+           {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in MESH_SHAPES},
     }, {
         "name": "knn_merge",
         "route": "cuda",
@@ -3576,6 +3971,9 @@ def main(argv=None):
         "launches_icp": icp["knn_merge_launches"],
         "launches_kitti": kitti["knn_merge_launches"],
         "launches_ndt": 0,
+        "launches_mesh": mesh["launches"]["knn_merge"],
+        "launches_mesh_by_rank": [mesh["launches_one_rank"]["knn_merge"]]
+        + [r["knn_merge"] for r in mesh["launches_by_rank"]],
         "max_abs_err": merge["max_abs_err"],
         "ms": merge["ms"], "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
         "bound_by": merge["bound_by"], "library_ms": merge["library_ms"],
@@ -3599,6 +3997,9 @@ def main(argv=None):
         "launches_icp": icp["projector_launches"],
         "launches_kitti": kitti["projector_launches"],
         "launches_ndt": ndt["projector_launches"],
+        "launches_mesh": mesh["launches"]["projector"],
+        "launches_mesh_by_rank": [mesh["launches_one_rank"]["projector"]]
+        + [r["projector"] for r in mesh["launches_by_rank"]],
         "max_abs_err": proj["max_abs_err"],
         "ms": proj["ms"], "plain_ms": proj["plain_ms"], "bound_ms": proj["bound_ms"],
         "bound_by": proj["bound_by"], "library_ms": proj["library_ms"],
@@ -3617,6 +4018,7 @@ def main(argv=None):
                        "profile": prof, "backend": be, "reboot": reboot, "async": asyn,
                        "city": city, "persist": persist, "merge": sessions, "lio": lio,
                        "schur": schur, "dual": dual, "icp": icp, "ndt": ndt, "kitti": kitti,
+                       "mesh": mesh,
                        "phase_seconds": seconds,
                        "projector_jacobi": jacobi,
                        "seconds": time.perf_counter() - t_start},

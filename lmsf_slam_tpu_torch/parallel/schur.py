@@ -1,6 +1,6 @@
 """Submap-partitioned pose-graph solve by Schur-complement elimination.
 
-Counterpart of ``lmsf_slam_tpu/parallel/schur.py`` on one device:
+Counterpart of ``lmsf_slam_tpu/parallel/schur.py``:
 
 - vertices are partitioned into ``S`` contiguous **submaps** (keyframe order,
   so odometry edges stay internal);
@@ -11,8 +11,14 @@ Counterpart of ``lmsf_slam_tpu/parallel/schur.py`` on one device:
   solves that small dense system, and back-substitutes.
 
 The partition (:func:`partition_graph`) is host numpy, as in the reference;
-the solve runs as torch ops on the device of ``poses``. The reference's
-``psum`` over a mesh is the identity on one device, so it is left out.
+the solve runs as torch ops on the device of ``poses``, or of the mesh. Over
+a mesh (:mod:`.distributed`) each rank eliminates its contiguous S/size
+submaps; the separator system and gradient, and the interior increments, are
+summed over the mesh with an all-reduce where the reference ``psum``s them,
+and every rank solves the separator system (replicated). S is rounded up to
+a multiple of the mesh size. The all-reduce adds the ranks' float32 partial
+sums in float64 on a card and rounds once. Without a mesh nothing of this
+runs.
 
 Two things differ from a literal translation, both for the card:
 
@@ -44,6 +50,7 @@ from ..backend.pose_graph import (
     edge_residual,
 )
 from ..common import se3
+from .distributed import Mesh, allreduce
 
 INT, SEP, DROP = 0, 1, 2
 
@@ -308,22 +315,34 @@ class _Plumbing(NamedTuple):
     u_gsep: torch.Tensor
 
 
-def _plumbing(part: SubmapPartition, device) -> _Plumbing:
-    def t(a):
-        a = np.asarray(a)
+def _plumbing(part: SubmapPartition, device, rows=slice(None)) -> _Plumbing:
+    """The index arrays of the submaps ``rows`` (all by default) on ``device``;
+    ``sep_ids`` is global and whole."""
+    def t(a, sub=True):
+        a = np.asarray(a)[rows] if sub else np.asarray(a)
         return torch.as_tensor(a if a.dtype == bool else a.astype(np.int64), device=device)
 
     return _Plumbing(
-        t(part.e_idx), t(part.e_mask), t(part.cls), t(part.loc), t(part.sep_ids),
+        t(part.e_idx), t(part.e_mask), t(part.cls), t(part.loc), t(part.sep_ids, sub=False),
         t(part.sep_local2global), t(part.sep_l2g_mask), t(part.int_ids), t(part.int_mask),
         t(part.u_idx), t(part.u_mask), t(part.u_cls), t(part.u_loc), t(part.u_gsep),
     )
 
 
+def _mesh_sum(x, mesh: Mesh | None):
+    """Σ of ``x`` over the mesh, added in float64 on a card and rounded once
+    (``x`` itself without a mesh)."""
+    if mesh is None:
+        return x
+    acc = torch.float64 if x.is_cuda else x.dtype
+    return allreduce(x.to(acc), mesh).to(x.dtype)
+
+
 def _schur_gn_step(part: SubmapPartition, params: PoseGraphParams, pl: _Plumbing,
-                   poses, t: int, edges, unaries):
-    """One GN step of the Schur solve → (new poses, dx norm)."""
-    S, m, k, n_sep = part.n_submaps, part.m, part.k, part.n_sep
+                   poses, t: int, edges, unaries, mesh: Mesh | None = None):
+    """One GN step of the Schur solve → (new poses, dx norm). ``pl`` holds
+    this rank's submaps (all of them without a mesh)."""
+    S, m, k, n_sep = pl.e_idx.shape[0], part.m, part.k, part.n_sep
     m6, k6, n6 = 6 * m, 6 * k, 6 * n_sep
     e_ij, e_z, e_sw, e_rob = edges
     dev, dt = poses.device, poses.dtype
@@ -431,8 +450,8 @@ def _schur_gn_step(part: SubmapPartition, params: PoseGraphParams, pl: _Plumbing
         n6 + 6, n6 + 6)[:n6, :n6]
     gs_corr = _scatter_sum(dg.reshape(-1), rowg, n6 + 6)[:n6]
 
-    Hsep = Hs.permute(0, 2, 1, 3).reshape(n6, n6) - Hs_corr
-    gsep = g_sep.reshape(n6) - gs_corr
+    Hsep = _mesh_sum(Hs.permute(0, 2, 1, 3).reshape(n6, n6) - Hs_corr, mesh)
+    gsep = _mesh_sum(g_sep.reshape(n6) - gs_corr, mesh)
 
     # sep_ids is data of this call's partition, never a constant of the code
     sep_pad = torch.repeat_interleave(pl.sep_ids < 0, 6).to(dt)
@@ -449,8 +468,10 @@ def _schur_gn_step(part: SubmapPartition, params: PoseGraphParams, pl: _Plumbing
     # scatter into (V, 6): interiors + separators
     V = poses.shape[0]
     ids = torch.where(pl.int_mask, pl.int_ids, V)
-    dxv = _scatter_sum(
-        (dx_int.reshape(S, m, 6) * pl.int_mask[..., None]).reshape(-1, 6), ids, V)
+    dxv = _mesh_sum(_scatter_sum(
+        (dx_int.reshape(S, m, 6) * pl.int_mask[..., None]).reshape(-1, 6), ids, V), mesh)
+    # dx_sep is replicated (every rank solved the same summed system), so it
+    # is added here and not summed over the mesh
     sep_ids_safe = torch.where(pl.sep_ids >= 0, pl.sep_ids, V)
     dxv = dxv + _scatter_sum(
         dx_sep.reshape(n_sep, 6) * (pl.sep_ids >= 0)[:, None], sep_ids_safe, V)
@@ -529,21 +550,26 @@ def optimize_pose_graph_schur(
     emask,
     n_submaps: int = 16,
     fixed=None,
+    mesh: Mesh | None = None,
     edges_robust=None,
     prior_xyz=None, prior_idx=None, prior_sqrtw=None, prior_mask=None,
     qprior_quat=None, qprior_idx=None, qprior_sqrtw=None, qprior_mask=None,
     plane_idx=None, plane_z=None, plane_sqrtw=None, plane_mask=None,
     params: PoseGraphParams = PoseGraphParams(),
 ):
-    """Schur-complement submap solve on the device of ``poses`` (a tensor).
+    """Schur-complement submap solve on the device of ``poses`` (a tensor),
+    or with ``mesh`` on the mesh's device, each rank eliminating its share of
+    the submaps (``n_submaps`` rounded up to a multiple of the mesh size).
 
     Interface of ``optimize_pose_graph`` without ``vmask`` (every vertex is
     real: pad the graph before calling and fix the padding). The edge arrays
     may be tensors or numpy; the graph's topology (``edges_ij``, ``emask``,
     ``fixed``, the unaries' ids and masks) is read on the host to partition
-    it. Returns (poses, PoseGraphStats).
+    it. Returns (poses, PoseGraphStats), replicated over the mesh.
     """
     V = poses.shape[0]
+    if mesh is not None:
+        poses = poses.to(mesh.device)
     dev = poses.device
     if fixed is None:
         fixed_np = np.zeros(V, bool)
@@ -556,9 +582,13 @@ def optimize_pose_graph_schur(
         qprior_quat, qprior_idx, qprior_sqrtw, qprior_mask,
         plane_idx, plane_z, plane_sqrtw, plane_mask,
     )
-    part = partition_graph(_host(edges_ij), _host(emask, bool), V, n_submaps, fixed_np,
+    n_dev = 1 if mesh is None else mesh.size
+    S = -(-max(n_submaps, n_dev) // n_dev) * n_dev  # a multiple of the mesh size
+    part = partition_graph(_host(edges_ij), _host(emask, bool), V, S, fixed_np,
                            unary_vid=u_vid)
-    pl = _plumbing(part, dev)
+    S_l = S // n_dev
+    rank = 0 if mesh is None else mesh.rank
+    pl = _plumbing(part, dev, slice(rank * S_l, (rank + 1) * S_l))
 
     def on_dev(a, dtype):
         return torch.as_tensor(a, device=dev).to(dtype)
@@ -585,11 +615,11 @@ def optimize_pose_graph_schur(
     p = poses
     iters = 0
     while iters < params.gn_iters:
-        p, dxn = _schur_gn_step(part, params, pl, p, iters, edges, unaries)
+        p, dxn = _schur_gn_step(part, params, pl, p, iters, edges, unaries, mesh)
         # no convergence mid-GNC-anneal (the surrogate is still changing)
         small = (dxn < params.converged_dx) & (iters >= params.gnc_iters)
         iters += 1
-        if bool(small):
+        if bool(small):  # replicated bit for bit: every rank stops together
             break
     return p, PoseGraphStats(
         chi2_initial=chi2_0,

@@ -41,7 +41,7 @@ def test_port_imports_no_jax_at_run_time():
         "import chip_smoke\n"
         f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN_AT_IMPORT!r}))\n"
         "assert not bad, bad\n"
-        f"missing = sorted(set({IMU_MODULES + MULTI_MODULES + TOOLING_MODULES!r}) - {{n[len(p.__name__) + 1:] for n in names}})\n"
+        f"missing = sorted(set({IMU_MODULES + MULTI_MODULES + TOOLING_MODULES + MESH_MODULES!r}) - {{n[len(p.__name__) + 1:] for n in names}})\n"
         "assert not missing, missing\n"
         "print(len(names))\n"
     )
@@ -83,6 +83,12 @@ TOOLING_MODULES = ("ops.voxel", "ops.registration", "datasets.kitti", "datasets.
                    "native", "native.bindings", "evaluation.metrics", "evaluation.render",
                    "common.databus", "utils.profiling", "entry")
 SCRIPTS = ("scripts/evaluate_torch.py", "scripts/fuse_sessions_torch.py")
+# beyond one device: the mesh and its collectives, the edge-sharded solve and
+# batched registration, the offline mapping, the bootstrap of several
+# processes; and the functions the multi-rank tests run in each rank (a
+# spawned rank imports them by name, so they must not import JAX either)
+MESH_MODULES = ("parallel.distributed", "parallel.offline_mapping", "parallel.multihost")
+RANK_HELPERS = ROOT / "tests" / "torch_ranks.py"
 
 
 @pytest.mark.parametrize("module",
@@ -208,6 +214,33 @@ def test_scripts_import_no_jax_at_run_time():
         "    except SystemExit as e:\n"
         "        assert e.code == 0, (s, e.code)\n"
         f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN_AT_IMPORT + ('matplotlib',)!r}))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", MESH_MODULES + ("tests/torch_ranks.py",))
+def test_mesh_modules_name_no_jax(module):
+    """The modules beyond one device and the ranks' test helpers: no import
+    statement at any depth names JAX or the reference package, and what they
+    import outside this package is the standard library, numpy or torch."""
+    path = RANK_HELPERS if module.endswith(".py") else PACKAGE / (module.replace(".", "/") + ".py")
+    names = _imports(path)
+    assert names and not any(_forbidden(n) for n in names), names
+    roots = {n.split(".")[0] for n in names if not n.startswith(".")}
+    allowed = {"__future__", "os", "socket", "time", "traceback", "datetime", "typing", "numpy",
+               "torch", "lmsf_slam_tpu_torch"}
+    assert roots <= allowed, roots
+
+
+def test_rank_helpers_import_no_jax_at_run_time():
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_ranks\n"
+        f"bad = sorted(n for n in sys.modules if any(n == f or n.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(),
