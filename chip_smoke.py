@@ -19,7 +19,9 @@ Phases, one line each:
              city's ten; the fused two-LiDAR frame's 768×8192; the KITTI
              configuration's 6144×16384, 6144×61440, 6144×67584 and, with the
              city's features, 3072×33792; phase mesh's 64×128, 384×384,
-             1536×1536, 576×8192 and 1152×16384) and
+             1536×1536, 576×8192 and 1152×16384; phase bench's 1920×8192,
+             3840×16384, 1920×1920, 3840×3840, 7680×7680 and 15360×15360, the
+             HDL-64 pair's bit for bit against the single-scan model) and
              at the corner cases (masked queries, a size that is no multiple
              of slice or tile, duplicated references, Q=1, N=1, no valid
              reference, no valid query, k above the number of valid
@@ -229,9 +231,25 @@ Phases, one line each:
              1e-6 m; offline ATE under 0.25 m with at least 2 of 3 stitches
              converged and every chunk starting at identity; every rank
              through the k-NN and projector kernels, whose launches it prints
-             a rank; every k-NN shape held by phase kernel.
+             a rank; every k-NN shape held by phase kernel;
+18. bench  — after schur: ``bench_torch.py`` (bench.py's metrics) at bench.py's
+             widths and frame counts: the front end (organize → features →
+             ``tracker_step`` on 16 × 1800 scans, 1920 / 3840 features, 3
+             warm-up and 30 timed frames), the scan-to-scan registration pairs
+             at VLP-16 and HDL-64 (64 × 1800, 7680 / 15360 features; 21 calls
+             each), ``MultiLidarSystem.process`` at those widths sync and async
+             (policy ``block``, ``optimize_window=50``, ``flush()`` inside the
+             clock); the pose graph's numbers are phase schur's solves of the
+             same graph (``bench_torch.build_posegraph``), not solved again.
+             Checks: finite poses, front-end and system ATE under 0.15 m, the
+             first 3 frames and the VLP-16 pair within 1e-3 m of the CPU, 10
+             k-NN and 5 projector launches a frame and a registration call,
+             every part through both kernels, nothing dropped, the async run's
+             odometry equal to the sync run's, bench.py's asserts on the pose
+             graph (chi2 under 2·6·1904, ATE under 1 m), every k-NN shape held
+             by phase kernel. Prints bench.py's result line.
 
-The phases run in the order 1–7, 14, 8, 15, 9–13, 16, 17. After each phase a
+The phases run in the order 1–7, 14, 8, 15, 9–12, 18, 13, 16, 17. After each phase a
 line says how many of its projector matrices took the
 Jacobi path (``JacobiTally``: the kernel's sweeps, kept on the card and read
 once at the phase's end). Temporary files go under ``build/chip_smoke_tmp``
@@ -358,6 +376,20 @@ KITTI_SHAPES = [
     # with the city course's feature settings (3072 surf features a frame)
     ("kitti city-features loop11 surf 3072x33792 k=5", 3072, 33792, 5),
 ]
+# phase bench: bench.py's widths. Its frame (1920 edge and 3840 surf features
+# a 16 × 1800 scan, 6 sectors × 20 / 40) against the tracker's registration
+# maps, and its scan-to-scan pairs, scan b's features against scan a's raw
+# feature set (no voxel map): VLP-16, and HDL-64 (64 × 1800: 7680 edge and
+# 15360 surf). Its system's backend meets no other shape on the 33-frame arc
+# (no loop candidate, so no verification or localization map).
+BENCH_SHAPES = [
+    ("bench frame edge 1920x8192 k=5", 1920, 8192, 5),
+    ("bench frame surf 3840x16384 k=5", 3840, 16384, 5),
+    ("bench vlp16 pair edge 1920x1920 k=5", 1920, 1920, 5),
+    ("bench vlp16 pair surf 3840x3840 k=5", 3840, 3840, 5),
+    ("bench hdl64 pair edge 7680x7680 k=5", 7680, 7680, 5),
+    ("bench hdl64 pair surf 15360x15360 k=5", 15360, 15360, 5),
+]
 
 # phases async, city, persist and merge
 CITY_SEED = 0
@@ -385,8 +417,6 @@ LIO_PROFILE_FRAMES = range(100, 106)  # frames profiled one by one (not timed)
 LIO_GNSS_LLA = (48.0, 11.0, 500.0)  # the fix that anchors the ENU frame
 LIO_GRAPH_WINDOWS = 40  # IMU windows through FactorGraphLio
 LIO_GRAPH_AGREE = 1e-4  # m, card vs CPU
-SCHUR_VERTICES = 1905  # bench.py's helix: the reference trajectory's length
-SCHUR_PADDED = 2048  # vertices and edges, padded as bench.py pads them
 SCHUR_SUBMAPS = 16  # config/default.yaml's schur_submaps
 SCHUR_ATE_LIMIT = 1.0  # m, bench.py's own assertion on the solve
 # m, card vs CPU poses of the merged sessions' solve: 12 float32 GN steps at
@@ -667,7 +697,7 @@ def phase_kernel(K):
         ("k>valid 40x3000 k=8 S=6", 40, 3000, 8, 5, 5, False, 6),
     ] + [(name, Q, N, 5, 0, 0.7, False, None) for name, Q, N in BACKEND_SHAPES] + [
         (name, Q, N, k, 0, 0.7, False, None)
-        for name, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES + MESH_SHAPES]
+        for name, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES + MESH_SHAPES + BENCH_SHAPES]
     results = {}
     timed = {}
     for i, (name, Q, N, k, qi, valid, dup, forced) in enumerate(cases):
@@ -675,13 +705,17 @@ def phase_kernel(K):
         S = forced if forced is not None else K.choose_splits(Q, N)
         slice_len = K.slice_length(N, S)
         blocks = -(-Q // tq) * S
-        small = N <= 5000
+        # the single-scan model holds the result bit for bit: at the small
+        # sizes, and at the HDL-64 pair, a raw feature set that
+        # choose_splits meets nowhere else
+        small = N <= 5000 or name.startswith("bench hdl64 pair")
         err, n_tie = compare_knn(K, q, qm, r, rm, k, exact_model=small, dup=dup, splits=S)
         row = {"Q": Q, "N": N, "k": k, "n_valid": int(rm.sum()), "splits": S,
                "slice_len": slice_len, "blocks": blocks, "max_abs_err": err,
                "near_tie_rows": n_tie, "equals_single_scan_model": small}
         results[name] = row
-        if name.startswith(("edge", "surf", "nn1", "loop", "loc", "city", "dual", "kitti", "mesh")):
+        if name.startswith(("edge", "surf", "nn1", "loop", "loc", "city", "dual", "kitti", "mesh",
+                            "bench")):
             timed[name] = (q, qm, r, rm, k)
             continue
         log("kernel", f"{name}: S={S} (slices of {slice_len}), {blocks} blocks; agrees with "
@@ -2497,61 +2531,6 @@ def geo_err(a, b):
     return float(np.abs(se3np.pose_log(d)).max())
 
 
-def bench_graph():
-    """``bench.py::bench_posegraph``'s graph from its seed, through the port's
-    host se3: a 1905-vertex helix, odometry edges with σ 0.01 rad / 0.05 m,
-    96 exact loop edges, the initial guess integrated from the odometry.
-    Returns (ground truth, unpadded graph, graph padded to 2048 with the tail
-    and vertex 0 fixed)."""
-    from lmsf_slam_tpu_torch.common import se3np
-
-    rng = np.random.default_rng(0)
-    V = SCHUR_VERTICES
-    step = se3np.se3_exp(np.array([0, 0, 0.04, 1.2, 0, 0.08], np.float32))
-    gt = [se3np.pose_identity()]
-    for _ in range(V - 1):
-        gt.append(se3np.pose_compose(gt[-1], step))
-    gt = np.stack(gt).astype(np.float32)
-    eij, ez = [], []
-    for i in range(V - 1):
-        z = se3np.pose_between(gt[i], gt[i + 1])
-        pert = np.concatenate([rng.normal(0, 0.01, 3), rng.normal(0, 0.05, 3)])
-        eij.append((i, i + 1))
-        ez.append(np.float32(se3np.pose_compose(z, se3np.se3_exp(np.float32(pert)))))
-    for _ in range(96):
-        i = int(rng.integers(0, V - 200))
-        j = int(rng.integers(i + 100, V))
-        eij.append((i, j))
-        ez.append(np.float32(se3np.pose_between(gt[i], gt[j])))
-    eij, ez = np.asarray(eij, np.int32), np.stack(ez).astype(np.float32)
-    init = [gt[0]]
-    for e in range(V - 1):
-        init.append(np.float32(se3np.pose_compose(init[-1], ez[e])))
-    init = np.stack(init).astype(np.float32)
-    E = eij.shape[0]
-    sqrtw = np.tile(np.array([100.0] * 3 + [20.0] * 3, np.float32), (E, 1))
-    erob = np.arange(E) >= V - 1
-    plain = dict(poses=init, vmask=np.ones(V, bool), edges_ij=eij, edges_z=ez,
-                 edges_sqrtw=sqrtw, emask=np.ones(E, bool), edges_robust=erob)
-    P = SCHUR_PADDED
-    poses = np.zeros((P, 7), np.float32)
-    poses[:, 0] = 1.0
-    poses[:V] = init
-    peij = np.zeros((P, 2), np.int32)
-    pez = np.zeros((P, 7), np.float32)
-    pez[:, 0] = 1.0
-    psw = np.zeros((P, 6), np.float32)
-    pem = np.zeros(P, bool)
-    per = np.zeros(P, bool)
-    peij[:E], pez[:E], psw[:E], pem[:E], per[:E] = eij, ez, sqrtw, True, erob
-    fixed = np.zeros(P, bool)
-    fixed[0] = True
-    fixed[V:] = True
-    padded = dict(poses=poses, edges_ij=peij, edges_z=pez, edges_sqrtw=psw, emask=pem,
-                  edges_robust=per, fixed=fixed)
-    return gt, plain, padded
-
-
 def timed(fn, repeats, warm_up=True):
     """(result of the last call, ms of each call): host clock around calls
     that end in a read-back, after one warm-up call."""
@@ -2597,17 +2576,17 @@ def phase_schur():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    import bench_torch
     from lmsf_slam_tpu_torch.backend import LifelongBackend, LifelongConfig
     from lmsf_slam_tpu_torch.backend.pose_graph import PoseGraphParams, optimize_pose_graph
     from lmsf_slam_tpu_torch.evaluation import ate_stats
     from lmsf_slam_tpu_torch.parallel import optimize_pose_graph_schur, partition_graph
 
     # (a) bench.py's graph: 60 GN iterations, huber on the loop edges
-    params = PoseGraphParams(gn_iters=60, pcg_iters=128)
-    gt, plain, padded = bench_graph()
-    V = SCHUR_VERTICES
-    part = partition_graph(padded["edges_ij"], padded["emask"], SCHUR_PADDED, SCHUR_SUBMAPS,
-                           padded["fixed"])
+    params = bench_torch.posegraph_params()
+    gt, plain, padded = bench_torch.build_posegraph()
+    V, P = bench_torch.POSEGRAPH_VERTICES, bench_torch.POSEGRAPH_PADDED
+    part = partition_graph(padded["edges_ij"], padded["emask"], P, SCHUR_SUBMAPS, padded["fixed"])
 
     def schur(device, p=params, dtype=torch.float32):
         kw = dict(padded)
@@ -2643,7 +2622,7 @@ def phase_schur():
         torch.cuda.synchronize()
     it = profile_counts(prof, 3)
     bench = {
-        "vertices": V, "padded": SCHUR_PADDED, "submaps": SCHUR_SUBMAPS,
+        "vertices": V, "padded": P, "submaps": SCHUR_SUBMAPS,
         "interior_slots": part.m, "separator_slots_a_submap": part.k,
         "separator_slots": part.n_sep, "separators": int((part.sep_ids >= 0).sum()),
         "edge_slots_a_submap": int(part.e_idx.shape[1]),
@@ -2662,7 +2641,7 @@ def phase_schur():
         "repeats_bit_equal": bool(np.array_equal(first, s_out)),
         "per_iteration": {k: v for k, v in it.items() if k != "rows"}, "top": it["rows"][:10],
     }
-    log("schur", f"bench graph ({V} vertices padded to {SCHUR_PADDED}, {SCHUR_SUBMAPS} submaps: "
+    log("schur", f"bench graph ({V} vertices padded to {P}, {SCHUR_SUBMAPS} submaps: "
         f"{part.m} interior slots, {bench['separators']} separators in {part.n_sep} slots, "
         f"{part.k} a submap, {bench['edge_slots_a_submap']} edge slots a submap): Schur "
         f"{bench['schur_ms_median']:.1f} ms a solve (median of {SCHUR_REPEATS}: "
@@ -2768,6 +2747,142 @@ def phase_schur():
     check(vs_rep < SCHUR_VS_REPLICATED, f"Schur vs replicated poses {vs_rep:.3g}")
     check(f_cpu < SCHUR_AGREE, f"merged sessions' solve card vs CPU {f_cpu:.3g} ≥ {SCHUR_AGREE}")
     return {"bench_graph": bench, "merged_sessions": fused}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: bench.py's metrics through bench_torch.py
+# ---------------------------------------------------------------------------
+
+BENCH_CPU_FRAMES = 3  # the front end's first frames, also run on the CPU
+
+
+def host_batch(pb):
+    from lmsf_slam_tpu_torch.common.pointcloud import PointBatch
+
+    return PointBatch(pb.xyz.cpu(), pb.mask.cpu(), pb.attr.cpu())
+
+
+def phase_bench(graph):
+    """``bench_torch.py`` at bench.py's widths and frame counts: the front
+    end (33 frames of 16 × 1800), the registration pairs at VLP-16 and
+    HDL-64 (21 calls each), ``MultiLidarSystem.process`` sync and async
+    (``block``); the pose graph's numbers are phase schur's solves of the
+    same graph (``graph``), not solved again."""
+    import torch
+
+    import bench_torch as B
+    from lmsf_slam_tpu_torch import _build
+    from lmsf_slam_tpu_torch.common import se3np
+    from lmsf_slam_tpu_torch.evaluation import ate_stats
+    from lmsf_slam_tpu_torch.tracker import tracker_init
+
+    n = B.N_WARM + B.N_FRAMES
+    world, traj = B.make_course()
+    gt = np.float32(se3np.pose_between(traj[:1], traj[:n]))
+    counts = {}
+
+    def counted(name, fn, *a):  # the counts set to 0 just before, read just after
+        _build.reset_launches()
+        out = fn(*a)
+        counts[name] = B.launches()
+        return out
+
+    with knn_census() as shapes:
+        fps, poses = counted("frontend", B.bench_frontend, world, traj)
+        reg, reg_poses = counted("registration", B.bench_registration, world, traj)
+        sync_fps, sync_sys = counted("system_sync", B.bench_system, world, traj, False)
+        async_fps, async_sys = counted("system_async", B.bench_system, world, traj, True)
+    async_sys._async.close()
+    est = torch.stack(poses).cpu().numpy()
+
+    # the card against the CPU on the same scans (each rendered from its seed
+    # on the card, as the timed runs render them)
+    config = B.tracker_config()
+    step = B.make_step(config)
+    state = tracker_init(config, device="cpu")
+    cpu = []
+    for i in range(BENCH_CPU_FRAMES):
+        scan = host_batch(B.make_scan(world, traj[i], i))
+        state, pose = step(state, scan, torch.tensor(0.1 * i))
+        cpu.append(pose.numpy())
+    fe_dev = float(np.max(np.abs(np.stack(cpu) - est[:BENCH_CPU_FRAMES])))
+    scan_a, scan_b = B.registration_scans(world, traj)["vlp16"]
+    reg_cpu = B.registration_pair(host_batch(scan_a), host_batch(scan_b),
+                                  *B.REG_SCANS["vlp16"]).numpy()
+    reg_dev = float(np.max(np.abs(reg_cpu - reg_poses["vlp16"].cpu().numpy())))
+
+    systems = {}
+    for name, system in (("sync", sync_sys), ("async", async_sys)):
+        db, be = system.backend.db, system.backend
+        odom = np.stack([r.odom_pose for r in system.results])
+        systems[name] = {
+            "keyframes": int(db.n_keyframes), "solver_runs": dict(be.solver_runs),
+            "mode": be.mode.name, "ate_map_m": ate_stats(system.trajectory(), gt).rmse,
+            "ate_odom_m": ate_stats(odom, gt).rmse, "odom": odom,
+            "dropped": system._async.dropped if system._async is not None else 0,
+        }
+    odom_apart = float(np.max(np.abs(systems["sync"]["odom"] - systems["async"]["odom"])))
+    pg = (graph["replicated_ms"][0], *graph["replicated_chi2"], graph["replicated_ate_m"],
+          graph["replicated_iterations"], graph["schur_ms_median"], graph["schur_ate_m"])
+    line = B.summary(fps, reg, pg, sync_fps, async_fps)
+    per = {k: {kk: v / (n if k.startswith(("frontend", "system")) else 2 * (B.REG_CALLS + 1))
+               for kk, v in c.items()} for k, c in counts.items()}
+    out = {
+        "result": line, "launches": counts, "knn_shapes": {f"{q}x{r} k={k}": c
+                                                            for (q, r, k), c in sorted(shapes.items())},
+        "frontend_ms_a_frame": 1e3 / fps, "ate_frontend_m": ate_stats(est, gt).rmse,
+        "cpu_frames": BENCH_CPU_FRAMES, "cpu_max_abs_pose_diff": fe_dev,
+        "registration_cpu_max_abs_pose_diff": reg_dev,
+        "registration_ms": {k: 1e3 / v for k, v in reg.items()},
+        "systems": {k: {kk: vv for kk, vv in v.items() if kk != "odom"} for k, v in systems.items()},
+        "async_vs_sync_odom_max_abs_diff": odom_apart,
+    }
+    log("bench", f"front end (bench.py's frame, 16 x 1800, 1920 / 3840 features, {B.N_FRAMES} "
+        f"timed of {n}): {fps:.2f} frames/s ({out['frontend_ms_a_frame']:.2f} ms a frame), "
+        f"odometry ATE {out['ate_frontend_m']:.4f} m; first {BENCH_CPU_FRAMES} frames card vs CPU "
+        f"max |Δ| {fe_dev:.3g} (limit {CPU_AGREE})")
+    log("bench", "registration pairs (" + ", ".join(
+        f"{k} {v:.2f} frames/s, {1e3 / v:.2f} ms" for k, v in reg.items())
+        + f"); the VLP-16 pair card vs CPU max |Δ| {reg_dev:.3g} (limit {CPU_AGREE})")
+    for name, fps_ in (("sync", sync_fps), ("async", async_fps)):
+        s = systems[name]
+        log("bench", f"system {name} ({'worker thread, policy block, optimize_window=50, flush() '
+                                          'inside the clock' if name == 'async' else 'inline'}): "
+            f"{fps_:.2f} frames/s, {s['keyframes']} keyframes, solver runs {s['solver_runs']}, "
+            f"mode {s['mode']}, dropped {s['dropped']}, ATE map {s['ate_map_m']:.4f} / odometry "
+            f"{s['ate_odom_m']:.4f} m")
+    log("bench", f"pose graph: phase schur's solves of the same graph, not solved again: "
+        f"replicated {pg[0]:.1f} ms (one solve), chi2 {pg[1]:.6g} → {pg[2]:.6g}, ATE {pg[3]:.4f} m, "
+        f"{pg[4]} iterations; Schur {pg[5]:.1f} ms (median of {SCHUR_REPEATS}), ATE {pg[6]:.4f} m")
+    log("bench", "launches a frame / a registration call: " + "; ".join(
+        f"{k} " + ", ".join(f"{kk} {v:g}" for kk, v in c.items()) for k, c in per.items())
+        + "; k-NN shapes met: " + ", ".join(f"{k} ×{c}" for k, c in out["knn_shapes"].items()))
+    log("bench", "bench.py's line: " + json.dumps(line))
+    check(np.isfinite(est).all() and all(np.isfinite(p.cpu().numpy()).all()
+                                         for p in reg_poses.values()), "non-finite bench pose")
+    check(out["ate_frontend_m"] < ATE_LIMIT, f"front-end ATE {out['ate_frontend_m']:.4f} m")
+    check(fe_dev < CPU_AGREE, f"front end card vs CPU {fe_dev:.3g}")
+    check(reg_dev < CPU_AGREE, f"VLP-16 registration pair card vs CPU {reg_dev:.3g}")
+    check(counts["frontend"]["knn"] == KNN_PER_FRAME * n
+          and counts["frontend"]["knn_merge"] == KNN_PER_FRAME * n
+          and counts["frontend"]["projector"] == PROJECTOR_PER_FRAME * n,
+          f"front-end launches {counts['frontend']} over {n} frames")
+    calls = 2 * (B.REG_CALLS + 1)
+    check(counts["registration"]["knn"] == KNN_PER_FRAME * calls
+          and counts["registration"]["projector"] == PROJECTOR_PER_FRAME * calls,
+          f"registration launches {counts['registration']} over {calls} calls")
+    for name, c in counts.items():
+        check(min(c.values()) > 0, f"{name}: a kernel was not launched: {c}")
+    for name, s in systems.items():
+        check(s["ate_map_m"] < ATE_LIMIT and s["ate_odom_m"] < ATE_LIMIT,
+              f"system {name}: ATE {s['ate_map_m']:.4f} / {s['ate_odom_m']:.4f} m")
+    check(systems["async"]["dropped"] == 0, "the async system dropped a keyframe")
+    check(odom_apart < CPU_AGREE, f"async odometry {odom_apart:.3g} from the sync run's")
+    V = B.POSEGRAPH_VERTICES
+    check(pg[2] < 2 * 6 * (V - 1) and pg[3] < 1.0 and pg[6] < 1.0,
+          f"bench.py's pose-graph asserts: chi2 {pg[2]:.6g}, ATE {pg[3]:.4f} / {pg[6]:.4f} m")
+    check_shapes_tabled("bench", shapes)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2960,7 +3075,8 @@ def tabled_shapes():
     """The k-NN shapes (Q, N, k) that phase kernel holds and times."""
     return ({(384, 8192, 5), (1536, 16384, 5), (1920, 24576, 1)}
             | {(Q, N, 5) for _, Q, N in BACKEND_SHAPES}
-            | {(Q, N, k) for _, Q, N, k in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES + MESH_SHAPES})
+            | {(Q, N, k) for _, Q, N, k
+               in CITY_SHAPES + DUAL_SHAPES + KITTI_SHAPES + MESH_SHAPES + BENCH_SHAPES})
 
 
 @contextlib.contextmanager
@@ -3527,8 +3643,10 @@ def mesh_inputs():
         return tuple(torch.stack([getattr(p, k) for p in pbs]).cpu().numpy()
                      for k in ("xyz", "mask", "attr"))
 
+    import bench_torch
+
     ring_gt, ring = mesh_ring()
-    bench_gt, plain, padded = bench_graph()
+    bench_gt, plain, padded = bench_torch.build_posegraph()
     plain = {k: v for k, v in plain.items() if k != "edges_robust"}  # every edge robust
 
     # scan i+1 against scan i's features, from the constant-velocity guess
@@ -3895,6 +4013,7 @@ def main(argv=None):
     city, ndt, persist, sessions = city_phases(run)
     lio = run("lio", phase_lio, prof)
     schur = run("schur", phase_schur)
+    bench = run("bench", phase_bench, schur["bench_graph"])
     dual = run("dual", phase_dual)
     kitti = run("kitti", phase_kitti)
     mesh = run("mesh", phase_mesh)
@@ -3929,6 +4048,8 @@ def main(argv=None):
         "launches_icp": icp["knn_launches"],
         "launches_kitti": kitti["knn_launches"],
         "launches_ndt": 0,
+        "launches_bench": sum(c["knn"] for c in bench["launches"].values()),
+        "launches_bench_by_part": {k: c["knn"] for k, c in bench["launches"].items()},
         "launches_mesh": mesh["launches"]["knn"],
         "launches_mesh_by_rank": [mesh["launches_one_rank"]["knn"]]
         + [r["knn"] for r in mesh["launches_by_rank"]],
@@ -3953,6 +4074,9 @@ def main(argv=None):
         **{"_".join(name.split()[:2]) + "_" + name.split()[-2] + "_"
            + name.split()[-1].replace("=", ""):
            {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in MESH_SHAPES},
+        **{"_".join(name.split()[:-2]) + "_" + name.split()[-2] + "_"
+           + name.split()[-1].replace("=", ""):
+           {k: kernel[name][k] for k in timed_keys} for name, _, _, _ in BENCH_SHAPES},
     }, {
         "name": "knn_merge",
         "route": "cuda",
@@ -3971,6 +4095,8 @@ def main(argv=None):
         "launches_icp": icp["knn_merge_launches"],
         "launches_kitti": kitti["knn_merge_launches"],
         "launches_ndt": 0,
+        "launches_bench": sum(c["knn_merge"] for c in bench["launches"].values()),
+        "launches_bench_by_part": {k: c["knn_merge"] for k, c in bench["launches"].items()},
         "launches_mesh": mesh["launches"]["knn_merge"],
         "launches_mesh_by_rank": [mesh["launches_one_rank"]["knn_merge"]]
         + [r["knn_merge"] for r in mesh["launches_by_rank"]],
@@ -3997,6 +4123,8 @@ def main(argv=None):
         "launches_icp": icp["projector_launches"],
         "launches_kitti": kitti["projector_launches"],
         "launches_ndt": ndt["projector_launches"],
+        "launches_bench": sum(c["projector"] for c in bench["launches"].values()),
+        "launches_bench_by_part": {k: c["projector"] for k, c in bench["launches"].items()},
         "launches_mesh": mesh["launches"]["projector"],
         "launches_mesh_by_rank": [mesh["launches_one_rank"]["projector"]]
         + [r["projector"] for r in mesh["launches_by_rank"]],
@@ -4017,7 +4145,8 @@ def main(argv=None):
             json.dump({"card": smi, "build": info, "kernel": kernel, "projector": proj, "slice": sl,
                        "profile": prof, "backend": be, "reboot": reboot, "async": asyn,
                        "city": city, "persist": persist, "merge": sessions, "lio": lio,
-                       "schur": schur, "dual": dual, "icp": icp, "ndt": ndt, "kitti": kitti,
+                       "schur": schur, "bench": bench, "dual": dual, "icp": icp, "ndt": ndt,
+                       "kitti": kitti,
                        "mesh": mesh,
                        "phase_seconds": seconds,
                        "projector_jacobi": jacobi,

@@ -176,9 +176,14 @@ def run_city(args):
                 kw = dict(zip(("gyro", "acc", "imu_dts"), windows[fi]))
             yield 0.1 * fi, city.scan(fi, movers=movers, moving=args.imu and i > 0), kw
 
+    peak = [0]  # the worker's largest backlog so far
+
     def progress(i):
+        if system._async is not None:
+            peak[0] = max(peak[0], system._async.backlog)
         if args.progress and i % 100 == 0:
-            print(f"# frame {i}/{n} kf={system.backend.db.n_keyframes}", file=sys.stderr)
+            print(f"# frame {i}/{n} kf={system.backend.db.n_keyframes} backlog peak={peak[0]}",
+                  file=sys.stderr)
 
     wall, lat = drive(system, scans(), progress)
     return system, system.trajectory(), gt_from(city.traj[start], city.traj[start:start + n]), wall, lat
@@ -289,7 +294,9 @@ def report(args, system, est, gt, wall, lat, extra=None) -> dict:
         "frames": int(est.shape[0]),
         "fps": round(est.shape[0] / wall, 2),
         "frame_ms_p50": round(float(np.percentile(steady, 50)) * 1e3, 2),
+        "frame_ms_p90": round(float(np.percentile(steady, 90)) * 1e3, 2),
         "frame_ms_p99": round(float(np.percentile(steady, 99)) * 1e3, 2),
+        "frame_ms_max": round(float(np.max(steady)) * 1e3, 2),
         "backend": "async" if system._async is not None else "sync",
         "keyframes": int(backend.db.n_keyframes),
         "mode": backend.mode.name,
@@ -325,6 +332,9 @@ def report(args, system, est, gt, wall, lat, extra=None) -> dict:
         result["ate"] = {"rmse": round(s.rmse, 4), "mean": round(s.mean, 4),
                          "median": round(s.median, 4), "std": round(s.std, 4),
                          "max": round(s.max, 4)}
+        if len(system.results) == gt.shape[0]:  # the front end's odometry, every frame
+            odom = np.stack([r.odom_pose for r in system.results])
+            result["ate_odom"] = {"rmse": round(ate_stats(odom, gt).rmse, 4)}
         if est.shape[0] > 12:
             r = rpe_stats(est, gt, delta=10)
             result["rpe_d10"] = {"rmse": round(r.rmse, 4), "mean": round(r.mean, 4),

@@ -82,7 +82,10 @@ MULTI_MODULES = ("parallel", "parallel.schur", "calibration", "calibration.hande
 TOOLING_MODULES = ("ops.voxel", "ops.registration", "datasets.kitti", "datasets.synthetic",
                    "native", "native.bindings", "evaluation.metrics", "evaluation.render",
                    "common.databus", "utils.profiling", "entry")
-SCRIPTS = ("scripts/evaluate_torch.py", "scripts/fuse_sessions_torch.py")
+SCRIPTS = ("scripts/evaluate_torch.py", "scripts/fuse_sessions_torch.py",
+           # the scripts beside the north-star benchmark
+           "bench_torch.py", "scripts/profile_frontend_torch.py", "scripts/render_map_torch.py",
+           "scripts/bench_knn_torch.py")
 # beyond one device: the mesh and its collectives, the edge-sharded solve and
 # batched registration, the offline mapping, the bootstrap of several
 # processes; and the functions the multi-rank tests run in each rank (a
