@@ -25,11 +25,17 @@ of either thread waits for the work queued before it. Grad mode and the
 current device are per thread, so the worker sets both itself. It never
 falls back to the sync path or to the CPU: a worker that fails re-raises on
 the caller's thread at the next ``submit`` or ``flush``.
+
+The worker records two spans a keyframe on the backend's ``timer``:
+``worker.keyframe``, the whole ``add_keyframe`` call (the backend's own
+stages nest inside it), and ``worker.queue_wait``, from ``submit`` to the
+worker taking the item. An item superseded under ``coalesce`` records none.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from collections import deque
 from typing import Optional
 
@@ -105,12 +111,15 @@ class AsyncBackend:
                     continue
                 item = self._q.popleft()
                 self._cond.notify_all()  # a blocked submitter can proceed
-            stamp, edge, surf, odom_pose, gnss_pos, scan_grid = item
+            stamp, edge, surf, odom_pose, gnss_pos, scan_grid, submitted = item
             try:
-                out = self.backend.add_keyframe(
-                    stamp, edge, surf, odom_pose, gnss_pos=gnss_pos,
-                    scan_grid=scan_grid,
-                )
+                # the wait ends now: the span runs back to the submit
+                self.backend.timer.add("worker.queue_wait", time.perf_counter() - submitted)
+                with self.backend.timer("worker.keyframe"):
+                    out = self.backend.add_keyframe(
+                        stamp, edge, surf, odom_pose, gnss_pos=gnss_pos,
+                        scan_grid=scan_grid,
+                    )
                 with self._cond:
                     self._outputs.append(out)
                     self._odom2map = np.asarray(self.backend.odom2map).copy()
@@ -154,6 +163,7 @@ class AsyncBackend:
             np.asarray(odom_pose, np.float32),
             None if gnss_pos is None else np.asarray(gnss_pos, np.float32),
             scan_grid,
+            time.perf_counter(),  # when submitted, for the queue wait
         )
         enqueued = True
         with self._cond:

@@ -30,6 +30,7 @@ gate.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -271,14 +272,16 @@ FUSED_METHODS = ("feature_based", "sparse_point_plane_icp")
 
 
 def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda",
-                     organize: Optional[bool] = None):
+                     organize: Optional[bool] = None, timer=None):
     """(tracker config, per-frame step) of the fused single-LiDAR path.
 
     ``step(state, xyz, mask, attr, t)`` runs preprocess → features
     (:func:`build_featurize`, LOAM or ICP by ``registration_method``;
     ``organize`` as there) → ``tracker_step`` on ``device`` and returns
     ``(state, TrackerOutput, edge, surf, grid)``. It launches work and reads
-    nothing back; :func:`read_frame` does the one read per frame.
+    nothing back; :func:`read_frame` does the one read per frame. A
+    ``timer`` (:class:`..utils.profiling.StageTimer`) records the two halves
+    as the spans ``frame.featurize`` and ``frame.track``.
     """
     if config.n_lidars != 1 or config.registration_method not in FUSED_METHODS:
         raise ValueError(f"the fused step serves one LiDAR with a registration method of "
@@ -286,14 +289,17 @@ def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda",
     tracker_config = tracker_config_for(config)
     device = torch.device(device)
     featurize = build_featurize(config, device, organize)
+    span = timer if timer is not None else (lambda label: contextlib.nullcontext())
 
     def step(state, xyz, mask, attr, t):
-        edge, surf, grid = featurize(xyz, mask, attr)
-        t = torch.as_tensor(t, dtype=torch.float32, device=device)
-        state, out = tracker_step(
-            state, edge, surf, t, tracker_config,
-            scan_grid=grid if tracker_config.carve_map else None,
-        )
+        with span("frame.featurize"):
+            edge, surf, grid = featurize(xyz, mask, attr)
+        with span("frame.track"):
+            t = torch.as_tensor(t, dtype=torch.float32, device=device)
+            state, out = tracker_step(
+                state, edge, surf, t, tracker_config,
+                scan_grid=grid if tracker_config.carve_map else None,
+            )
         return state, out, edge, surf, grid
 
     return tracker_config, step
@@ -379,6 +385,8 @@ class MultiLidarSystem:
                 device=self.device,
             )
             self.backend = LifelongBackend(db=db, config=config.lifelong, loop_config=config.loop)
+        # the frame's spans go where the backend's stages and the worker's go
+        self.timer = self.backend.timer
         self._async = None
         if config.async_backend:
             from ..backend.async_backend import AsyncBackend
@@ -390,7 +398,8 @@ class MultiLidarSystem:
         organize = self.backend.config.dynamic_carve_knn > 0
         self._fused_step = None
         if n == 1 and not config.use_imu and config.registration_method in FUSED_METHODS:
-            _, self._fused_step = build_fused_step(config, self.device, organize)
+            _, self._fused_step = build_fused_step(config, self.device, organize,
+                                                   self.timer)
         else:
             self._featurize = build_featurize(config, self.device, organize)
         self._pending_gnss = None  # latest ENU fix, attached to the next keyframe
@@ -539,7 +548,25 @@ class MultiLidarSystem:
         (gyro/acc (M,3), dts (M,), host arrays) for ESKF prediction + sweep
         deskew; ``wheel_speeds`` ((M,) or scalar) adds the encoder leg.
         Without ``use_imu`` the IMU arguments are ignored, as in the
-        reference."""
+        reference.
+
+        The frame records its spans on ``timer`` (the backend's): ``frame``
+        around the whole call, and inside it ``frame.featurize``,
+        ``frame.track``, ``frame.read_back`` and ``frame.handoff``."""
+        with self.timer("frame"):
+            read, edge, surf, scan_grid = self._front_end(
+                scan, timestamp, gyro, acc, imu_dts, wheel_speeds)
+            with self.timer("frame.handoff"):
+                return self._finish_frame(timestamp, read, edge, surf, scan_grid)
+
+    def _read(self, out):
+        with self.timer("frame.read_back"):
+            return _read_back(out)
+
+    def _front_end(self, scan, timestamp, gyro, acc, imu_dts, wheel_speeds):
+        """Featurize → track → the one read-back (→ calibrate): the
+        (odom_pose, converged, num_matches) read back, and the frame's edge
+        and surf clouds and range image."""
         scans = scan if isinstance(scan, (list, tuple)) else [scan]
         if len(scans) != self.config.n_lidars:
             raise ValueError(f"expected {self.config.n_lidars} scans, got {len(scans)}")
@@ -549,49 +576,51 @@ class MultiLidarSystem:
             self.tracker_state, out, edge, surf, scan_grid = self._fused_step(
                 self.tracker_state, s0.xyz, s0.mask, s0.attr, timestamp
             )
-            return self._finish_frame(timestamp, out, edge, surf, scan_grid)
+            return self._read(out), edge, surf, scan_grid
 
-        feats = [self.featurize(s) for s in scans]
-        scan_grid = feats[0][2]  # primary scan's range image (for carving)
-        if self.calib_status == 2 and len(feats) > 1:
-            # fused multi-lidar frame: sub features → primary sensor frame
-            edges, surfs = [feats[0][0]], [feats[0][1]]
-            for i, (se_, ss_, _) in enumerate(feats[1:]):
-                x = self._pose_tensor(self.extrinsics[i])
-                edges.append(se_.transform(x))
-                surfs.append(ss_.transform(x))
-            f = self.config.feature
-            n = self.config.n_lidars
-            edge = pb_concat(edges, capacity=n * f.edge_capacity)
-            surf = pb_concat(surfs, capacity=n * f.surf_capacity)
-        else:
-            # calibration phases track the primary alone
-            edge, surf = self._pad_to_fused(feats[0][0], feats[0][1])
+        with self.timer("frame.featurize"):
+            feats = [self.featurize(s) for s in scans]
+            scan_grid = feats[0][2]  # primary scan's range image (for carving)
+            if self.calib_status == 2 and len(feats) > 1:
+                # fused multi-lidar frame: sub features → primary sensor frame
+                edges, surfs = [feats[0][0]], [feats[0][1]]
+                for i, (se_, ss_, _) in enumerate(feats[1:]):
+                    x = self._pose_tensor(self.extrinsics[i])
+                    edges.append(se_.transform(x))
+                    surfs.append(ss_.transform(x))
+                f = self.config.feature
+                n = self.config.n_lidars
+                edge = pb_concat(edges, capacity=n * f.edge_capacity)
+                surf = pb_concat(surfs, capacity=n * f.surf_capacity)
+            else:
+                # calibration phases track the primary alone
+                edge, surf = self._pad_to_fused(feats[0][0], feats[0][1])
 
-        if self._lio is not None:
-            # the LIO tracker registers without the range image: the
-            # odometry map is not carved under IMU, as in the reference; the
-            # backend still gets the grid
-            _, out = self._lio.process_scan(
-                edge, surf, timestamp, gyro=gyro, acc=acc, imu_dts=imu_dts,
-                wheel_speeds=wheel_speeds,
-            )
-            self.tracker_state = self._lio.tracker_state
-        else:
-            self.tracker_state, out = tracker_step(
-                self.tracker_state, edge, surf, timestamp, self.tracker_config,
-                scan_grid=scan_grid if self.tracker_config.carve_map else None,
-            )
-        read = _read_back(out)
+        with self.timer("frame.track"):
+            if self._lio is not None:
+                # the LIO tracker registers without the range image: the
+                # odometry map is not carved under IMU, as in the reference;
+                # the backend still gets the grid
+                _, out = self._lio.process_scan(
+                    edge, surf, timestamp, gyro=gyro, acc=acc, imu_dts=imu_dts,
+                    wheel_speeds=wheel_speeds,
+                )
+                self.tracker_state = self._lio.tracker_state
+            else:
+                self.tracker_state, out = tracker_step(
+                    self.tracker_state, edge, surf, timestamp, self.tracker_config,
+                    scan_grid=scan_grid if self.tracker_config.carve_map else None,
+                )
+        read = self._read(out)
         if self.calib_status < 2:
             self._calibration_step(feats, read[0], timestamp)
-        return self._finish_frame(timestamp, out, edge, surf, scan_grid, read)
+        return read, edge, surf, scan_grid
 
-    def _finish_frame(self, timestamp, out, edge, surf, scan_grid, read=None) -> FrameResult:
-        """Keyframe gate → backend hand-off → FrameResult. All per-frame
-        scalars come down in ONE copy before the gate (``read``, when the
-        frame has taken it already); pose bookkeeping is host numpy (se3np)."""
-        odom_pose, converged, num_matches = _read_back(out) if read is None else read
+    def _finish_frame(self, timestamp, read, edge, surf, scan_grid) -> FrameResult:
+        """Keyframe gate → backend hand-off → FrameResult, from the frame's
+        ONE copy of its per-frame scalars (``read``, taken before the gate);
+        pose bookkeeping is host numpy (se3np)."""
+        odom_pose, converged, num_matches = read
 
         backend_out: Optional[BackendOutput] = None
         is_kf = self.gate.need_update(odom_pose, timestamp)

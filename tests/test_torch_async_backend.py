@@ -32,6 +32,7 @@ from lmsf_slam_tpu_torch.backend import async_backend as pab
 from lmsf_slam_tpu_torch.backend import keyframe_db as pdb
 from lmsf_slam_tpu_torch.backend import lifelong as pll
 from lmsf_slam_tpu_torch.backend import loop_closure as plc
+from lmsf_slam_tpu_torch.utils.profiling import StageTimer
 from tests.test_torch_lifelong import (
     DB, LIFELONG, LOOP, drifted_odometry, loop_course, reference_features,
 )
@@ -73,6 +74,7 @@ class StubBackend:
         self.entered = threading.Event()
         self.processed = []
         self.fail_on = set(fail_on)
+        self.timer = StageTimer()  # the port's worker records its spans here
 
     def add_keyframe(self, stamp, edge, surf, odom_pose, gnss_pos=None, scan_grid=None):
         self.entered.set()

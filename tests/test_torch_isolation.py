@@ -113,7 +113,7 @@ def test_lifelong_modules_name_no_jax(module):
             imported.append(("." * node.level) + (node.module or ""))
     assert imported and not any(_forbidden(n) for n in imported), imported
     roots = {n.split(".")[0] for n in imported if not n.startswith(".")}
-    allowed = {"__future__", "contextlib", "threading", "collections", "typing", "math",
+    allowed = {"__future__", "contextlib", "threading", "time", "collections", "typing", "math",
                "numpy", "torch"} | ({"ctypes"} if module in KERNEL_MODULES else set())
     assert roots <= allowed, roots
 

@@ -14,6 +14,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import jax
@@ -244,8 +245,15 @@ def test_device_trace_writes_a_trace(tmp_path):
         assert prof is None
     with device_trace(str(tmp_path / "trace")):
         torch.ones(64).cumsum(0)
+        # a second thread's ops (the backend's worker) are traced too
+        worker = threading.Thread(target=lambda: torch.ones(64).cumprod(0))
+        worker.start()
+        worker.join(10.0)
+    assert not worker.is_alive()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert trace["traceEvents"]
+    tid = {e["name"]: e.get("tid") for e in trace["traceEvents"]}
+    assert "aten::cumsum" in tid and "aten::cumprod" in tid
+    assert tid["aten::cumprod"] != tid["aten::cumsum"]
 
 
 def test_entry_runs_the_flagship_step():

@@ -342,11 +342,8 @@ def test_stage_timer_matches_reference(tmp_path):
     pt_.save_json(str(tmp_path / "p.json"))
     jt_.save_json(str(tmp_path / "j.json"))
     assert (tmp_path / "p.json").read_text() == (tmp_path / "j.json").read_text()
-    pt_.save_csv(str(tmp_path / "p.csv"), "kf_insert")
-    jt_.save_csv(str(tmp_path / "j.csv"), "kf_insert")
-    assert (tmp_path / "p.csv").read_text() == (tmp_path / "j.csv").read_text()
-    with pt_("stage", block_on=torch.zeros(1)):  # a CPU tensor: nothing to wait for
+    with pt_("stage"):
         pass
-    with pt_("stage", block_on="cpu"):
+    with pt_("stage"):
         pass
     assert pt_.stats()["stage"]["n"] == 2
