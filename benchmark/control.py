@@ -4,9 +4,9 @@
 
 For each seed, one run of the cell as ``run.py`` makes it (set-up, a window
 of ``--seconds``, the check), in one process; its result line gains
-``control``: the check's numbers with the plain reference, its clouds and
-poses stored in bfloat16 and its arithmetic in float32, put in the system's
-place. A limit lies between the largest reading of the program and the
+``control``: the check's numbers with the plain reference, its clouds,
+poses, IMU windows and filter states stored in bfloat16 and its arithmetic
+in float32, put in the system's place. A limit lies between the largest reading of the program and the
 smallest of the control.
 """
 import argparse

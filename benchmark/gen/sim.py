@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from ..reference.se3 import qmat
+
 BIG = 1e9
 
 
@@ -53,21 +55,15 @@ def make_world(rng: np.random.Generator, extent=30.0, extent_y=None, n_boxes=14,
     return {"boxes_min": bmin, "boxes_max": bmax, "cylinders": cyl, "ground_z": 0.0}
 
 
-def _quat_matrix(q):
-    w, x, y, z = q
-    return torch.stack([
-        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)]),
-        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)]),
-        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]),
-    ])
-
-
 def _hit_boxes(o, d, bmin, bmax):
+    """Ray parameter of the nearest box hit of each ray; ``o`` is one origin
+    (3,) or one a ray (M,3)."""
     if bmin.shape[0] == 0:
         return torch.full_like(d[:, 0], BIG)
+    o = o.reshape(-1, 1, 3)
     inv = 1.0 / torch.where(torch.abs(d) > 1e-9, d, 1e-9)
-    t1 = (bmin[None] - o.reshape(1, 1, 3)) * inv[:, None, :]
-    t2 = (bmax[None] - o.reshape(1, 1, 3)) * inv[:, None, :]
+    t1 = (bmin[None] - o) * inv[:, None, :]
+    t2 = (bmax[None] - o) * inv[:, None, :]
     tnear = torch.amax(torch.minimum(t1, t2), dim=2)
     tfar = torch.amin(torch.maximum(t1, t2), dim=2)
     hit = (tnear <= tfar) & (tfar > 0) & (tnear > 0)
@@ -75,16 +71,18 @@ def _hit_boxes(o, d, bmin, bmax):
 
 
 def _hit_cylinders(o, d, cyl):
+    """As :func:`_hit_boxes`, for the vertical cylinders."""
     if cyl.shape[0] == 0:
         return torch.full_like(d[:, 0], BIG)
-    ox, oy = o[0] - cyl[:, 0], o[1] - cyl[:, 1]
+    o = o.reshape(-1, 3)
+    ox, oy = o[:, 0:1] - cyl[:, 0], o[:, 1:2] - cyl[:, 1]
     dx, dy = d[:, 0:1], d[:, 1:2]
     a = torch.clamp(dx * dx + dy * dy, min=1e-9)
     b = 2.0 * (ox * dx + oy * dy)
     c = ox * ox + oy * oy - cyl[:, 2] * cyl[:, 2]
     disc = b * b - 4 * a * c
     t = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2 * a)
-    z = o[2] + t * d[:, 2:3]
+    z = o[:, 2:3] + t * d[:, 2:3]
     hit = (disc > 0) & (t > 0) & (z > 0) & (z < cyl[:, 3])
     return torch.amin(torch.where(hit, t, BIG), dim=1)
 
@@ -111,14 +109,19 @@ class Renderer:
     def scan(self, world, pose, normals):
         """(xyz (M,3), mask (M,), attr (M,1)) of the scan from ``pose``;
         ``normals`` are M standard normals on the device (the range noise)."""
+        pose = torch.as_tensor(np.asarray(pose, np.float32), dtype=torch.float32,
+                               device=self.device)
+        return self.cast(world, pose[4:], self.d_local @ qmat(pose[:4]).T, normals)
+
+    def cast(self, world, o, d, normals):
+        """The scan of the rays ``d`` (M,3, in the world frame) from ``o``,
+        one origin (3,) or one a ray (M,3), each return laid along its beam
+        of :attr:`d_local`, as :meth:`scan` lays it."""
         f32 = dict(dtype=torch.float32, device=self.device)
-        pose = torch.as_tensor(np.asarray(pose, np.float32), **f32)
-        R = _quat_matrix(pose[:4])
-        o = pose[4:]
-        d = self.d_local @ R.T
+        o = o.reshape(-1, 3)
         dz = d[:, 2]
         ok = torch.abs(dz) > 1e-9
-        tg = (world["ground_z"] - o[2]) / torch.where(ok, dz, 1e-9)
+        tg = (world["ground_z"] - o[:, 2]) / torch.where(ok, dz, 1e-9)
         t = torch.where(ok & (tg > 0), tg, BIG)
         t = torch.minimum(t, _hit_boxes(o, d, torch.as_tensor(world["boxes_min"], **f32),
                                         torch.as_tensor(world["boxes_max"], **f32)))

@@ -95,14 +95,15 @@ def load_reader(base: Path, name: str):
 
 
 def closed_window(sut, system, traffic, pool, first, seconds, trace_hook=None):
-    """Offer pool frames one after another, each once the previous pose is
-    back, until ``seconds`` have passed; then flush inside the clock."""
+    """Offer pool frames (each a scan and its IMU window) one after another,
+    each once the previous pose is back, until ``seconds`` have passed; then
+    flush inside the clock."""
     lat, backlog, returned = [], [], []
     k = 0
     t_start = time.perf_counter()
     while time.perf_counter() - t_start < seconds:
         if k >= len(pool):
-            raise RuntimeError(f"the window used up the pool of {len(pool)} scans")
+            raise RuntimeError(f"the window used up the pool of {len(pool)} frames")
         if trace_hook is not None:
             trace_hook(k)
         t0 = time.perf_counter()
@@ -125,7 +126,7 @@ def open_window(sut, system, traffic, pool, rate, trace_hook=None):
     Every frame due in the window is served before the flush."""
     lat, backlog, returned, late = [], [], [], []
     t_start = time.perf_counter()
-    for k, scan in enumerate(pool):
+    for k, frame in enumerate(pool):
         due = t_start + k / rate
         now = time.perf_counter()
         if now < due:
@@ -133,7 +134,7 @@ def open_window(sut, system, traffic, pool, rate, trace_hook=None):
         if trace_hook is not None:
             trace_hook(k)
         late.append(time.perf_counter() - due)
-        res = sut.process(system, scan, traffic.stamp(k))
+        res = sut.process(system, frame, traffic.stamp(k))
         lat.append(time.perf_counter() - due)
         backlog.append(sut.backlog(system))
         returned.append(res)
@@ -232,24 +233,29 @@ def run(argv, t_process_start, device=None, root=ROOT, control=False):
     setup_poses = {}  # frame -> odometry pose returned in set-up
     if mix["setup"] == "warmup":
         warm = sut.build(config, device, os.path.join(tmp.name, "warmup"))
+        sut.seed_velocity(warm, tr.initial_velocity())
         for k in range(mix["warmup_frames"]):
-            sut.process(warm, tr.scan(k), tr.stamp(k))
+            sut.process(warm, tr.frame(k), tr.stamp(k))
         warm.flush()
         sut.warm_solver(warm)
         sut.close(warm)
         del warm
         first = 0
         system = sut.build(config, device, storage)
+        sut.seed_velocity(system, tr.initial_velocity())
         verified = sut.record_loop_verifications(system)
         located = sut.record_localizations(system)
+        filters = sut.record_filters(system)
     elif mix["setup"] == "first_loop":
         system = sut.build(config, device, storage)
+        sut.seed_velocity(system, tr.initial_velocity())
         verified = sut.record_loop_verifications(system)
         located = sut.record_localizations(system)
+        filters = sut.record_filters(system)
         sut.warm_solver(system)
         first = None
         for k in range(mix["setup_max_frames"]):
-            setup_poses[k] = sut.process(system, tr.scan(k), tr.stamp(k)).odom_pose
+            setup_poses[k] = sut.process(system, tr.frame(k), tr.stamp(k)).odom_pose
             system.flush()
             if sut.localizing(system):
                 first = k + 1
@@ -259,10 +265,11 @@ def run(argv, t_process_start, device=None, root=ROOT, control=False):
             return 4
     else:
         raise ValueError(f"unknown set-up {mix['setup']!r}")
+    # every frame of the window with its IMU window, made before it opens
     if mix["loop"] == "open":
-        pool = [tr.scan(k) for k in range(n_frames)]
+        pool = [tr.frame(k) for k in range(n_frames)]
     else:
-        pool = [tr.scan(first + k) for k in range(mix["pool_frames"])]
+        pool = [tr.frame(first + k) for k in range(mix["pool_frames"])]
     stages_before = sut.stage_samples(system)
     gc.collect()
     sync(device)
@@ -299,9 +306,9 @@ def run(argv, t_process_start, device=None, root=ROOT, control=False):
     n = len(w["results"])
     stages_after = sut.stage_samples(system)
     payload = make_payload(sut, system, config, tr, pool, first, w, states, after, setup_poses,
-                           verified, located, args.seed, device)
+                           verified, located, filters, args.seed, device)
     sut.close(system)
-    del system, states, after
+    del system, states, after, filters
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -332,7 +339,8 @@ def run(argv, t_process_start, device=None, root=ROOT, control=False):
     t_check = time.perf_counter()
     numbers = check.numbers(payload)
     print(f"the reference took {time.perf_counter() - t_check:.1f} s; it redid "
-          f"{len(payload['frames'])} frames, {len(payload['stored'])} stored keyframes, "
+          f"{len(payload['frames'])} frames ({len(payload['filters'])} filter steps held), "
+          f"{len(payload['stored'])} stored keyframes, "
           f"{len(payload['loops'])} loop verifications and {len(payload['locs'])} of the window's "
           f"{payload['localizations']} localizations", file=sys.stderr)
     compared = {name: {"value": numbers.get(name), "limit": lim} for name, lim in limits.items()}
@@ -369,10 +377,13 @@ def check_sample(seed, mix, pool_len):
 
 
 def make_payload(sut, system, config, tr, pool, first, w, states, after, setup_poses, verified,
-                 located, seed, device):
-    """The check's inputs, on the host: the scans (by frame, rendered again
-    where the window's pool lacks them), every odometry pose the system
-    returned since its first frame, the tracker states of the sampled frames,
+                 located, filters, seed, device):
+    """The check's inputs, on the host: the scans, their sweep times and IMU
+    windows (by frame, taken from the window's pool or made again where it
+    lacks them), every odometry pose the system returned since its first
+    frame, the tracker states of the sampled frames, where the system has an
+    IMU filter its state before and after each frame up to the last sampled
+    one (the frames whose deskewed features the sampled frames' rings hold),
     the stored keyframes (those stored in the window, or, where the window
     stored none, in set-up), the pose graph after the flush, the accepted
     loop verifications and a sample of the window's localizations."""
@@ -381,12 +392,21 @@ def make_payload(sut, system, config, tr, pool, first, w, states, after, setup_p
     first = first or 0
     rendered = {}
 
-    def scan_of(frame):
+    def frame_of_course(frame):
         if 0 <= frame - first < len(pool):
-            return pool[frame - first][:2]
+            return pool[frame - first]
         if frame not in rendered:
-            rendered[frame] = tr.scan(frame)[:2]
+            rendered[frame] = tr.frame(frame)
         return rendered[frame]
+
+    def scan_of(frame):
+        return frame_of_course(frame)[0][:2]
+
+    def sweep_of(frame):
+        return frame_of_course(frame)[0][2][:, 0]
+
+    def imu_of(frame):
+        return frame_of_course(frame)[1]
 
     returned = {first + k: r.odom_pose for k, r in enumerate(w["results"])}
     odometry = {**setup_poses, **returned}
@@ -395,6 +415,14 @@ def make_payload(sut, system, config, tr, pool, first, w, states, after, setup_p
         if k < len(w["results"]):
             frames.append({"frame": first + k, "pose": w["results"][k].odom_pose,
                            **sut.tracker_state_payload(st, after.get(k))})
+    held = {}
+    if filters is not None and frames:
+        last = max(f["frame"] for f in frames)
+        for stamp, (before, after_f) in filters.items():
+            frame = int(round(stamp / tr.stamp(1)))
+            if frame <= last:
+                held[frame] = {"before": sut.filter_payload(before),
+                               "after": sut.filter_payload(after_f)}
     db = sut.store(system)
     n = db["n"]
     frame_of = np.rint(db["stamps"] / tr.stamp(1)).astype(int)
@@ -437,9 +465,22 @@ def make_payload(sut, system, config, tr, pool, first, w, states, after, setup_p
                      "keyframe_masks": [(np.array(db["edge_mask"][i]), np.array(db["surf_mask"][i]))
                                         for i in range(m)]})
     return {"device": str(device), "config": check_config(config), "scan_of": scan_of,
-            "stamp": tr.stamp(1),
+            "sweep_of": sweep_of, "imu_of": imu_of, "filters": held,
+            "filter_start_v": tr.initial_velocity(), "stamp": tr.stamp(1),
             "odometry": odometry, "frames": frames, "stored": stored, "graph": graph,
             "loops": loops, "locs": locs, "localizations": len(window_locs)}
+
+
+# the IMU-aided step's constants (see check_config)
+LIO_DEFAULTS = {
+    "eskf": {"acc_noise": 1e-2, "gyro_noise": 1e-3, "acc_bias_noise": 1e-4,
+             "gyro_bias_noise": 1e-5, "gravity": 9.81, "init_pos_std": 0.1, "init_vel_std": 0.1,
+             "init_att_std": 0.05, "init_ba_std": 0.05, "init_bg_std": 0.01},
+    "reg_pos_std": 0.05, "reg_rot_std": 0.01, "max_velocity": 30.0, "max_bias": 1.0,
+    "gates": {"max_motion_trans": 10.0, "max_motion_rot": 1.5, "motion_floor": 2.0,
+              "motion_gate_k": 3.0, "gate_reopen_after": 3, "pred_trust_k": 0.3,
+              "pred_trust_floor": 0.5},
+}
 
 
 def check_config(config):
@@ -450,7 +491,14 @@ def check_config(config):
     iterations, a 2 m gate, the 10 nearest keyframes; the tracker's local map
     of 20 scans, downsampled at 0.25 m into 8192 edge and 16384 surf voxels,
     carved where probation is on; odometry edges of variance 1e-4 rad² and
-    0.0025 m²; the graph's huber scale 10 on the whitened norm)."""
+    0.0025 m²; the graph's huber scale 10 on the whitened norm). With
+    ``use_imu`` the odometry map is not carved (the IMU-aided tracker gets no
+    range image) and ``lio`` holds the IMU-aided step's constants, the
+    system's own (``lio/lio_tracker.py``, ``estimator/eskf.py``,
+    ``tracker/tracker.py``, ``system/ml_system.py``): the filter's noise
+    densities, initial deviations and gravity; the registration's
+    measurement noise; the failure reset's limits; the motion gates, with the
+    prediction-trust gate at 0.3 of the smoothed speed under an IMU."""
     s = config["system"]
     pre = s.get("preprocess", {})
     loop = s.get("loop", {})
@@ -469,6 +517,8 @@ def check_config(config):
             "map_insert": insert, "window": s.get("tracker_window", 20),
             "map_voxel": 0.25, "map_capacity": (8192, 16384),
             "probation": bool(s.get("dynamic_probation", False)),
+            "carve": bool(s.get("dynamic_probation", False)) and not s.get("use_imu", False),
+            "lio": LIO_DEFAULTS if s.get("use_imu", False) else None,
             "max_range": pre.get("max_range", 60.0), "registration": s.get("registration", {}),
             "loop_rough": rough, "loop_refine": refine, "localization": localization,
             "localization_knn": life.get("localization_knn", 10), "odom_noise": odom_noise,

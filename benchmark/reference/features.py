@@ -37,8 +37,9 @@ def range_filter(xyz, mask, min_range, max_range):
     return torch.where(mask[:, None], xyz, 0.0), mask
 
 
-def organize(xyz, mask, rings, width):
-    """(grid xyz (R,W,3), range (R,W), mask (R,W))."""
+def organize(xyz, mask, rings, width, times=None):
+    """(grid xyz (R,W,3), range (R,W), mask (R,W)), and with ``times`` (N,)
+    the grid's times (R,W) after them: each cell's from the point it keeps."""
     rng = torch.linalg.vector_norm(xyz, dim=-1)
     horiz = torch.linalg.vector_norm(xyz[:, :2], dim=-1)
     elev = torch.atan2(xyz[:, 2], torch.clamp(horiz, min=1e-6))
@@ -56,8 +57,9 @@ def organize(xyz, mask, rings, width):
     cidx = _segment_min(torch.where(winner, src, INT_MAX), cell, n + 1, INT_MAX)[:-1]
     occ = cidx < INT_MAX
     ci = torch.clamp(cidx, 0, xyz.shape[0] - 1).long()
-    return (xyz[ci].reshape(rings, width, 3), torch.where(occ, best, 0.0).reshape(rings, width),
+    grid = (xyz[ci].reshape(rings, width, 3), torch.where(occ, best, 0.0).reshape(rings, width),
             occ.reshape(rings, width))
+    return grid if times is None else grid + (times[ci].reshape(rings, width),)
 
 
 def _roll(x, s):
@@ -113,12 +115,14 @@ def range_image(xyz, mask, feature: dict, min_range: float, max_range: float):
     return organize(xyz, mask, f["rings"], f["width"])
 
 
-def loam_features(xyz, mask, feature: dict, min_range: float, max_range: float):
+def loam_features(xyz, mask, feature: dict, min_range: float, max_range: float, times=None):
     """((edge xyz, edge mask), (surf xyz, surf mask)) of a raw scan, sensor
-    frame, in slot order (ring, sector, rank): the port's layout."""
+    frame, in slot order (ring, sector, rank): the port's layout. With the
+    scan's per-point sweep ``times`` (N,), each pair gains the features'
+    times as a third member."""
     f = dict(FEATURE_DEFAULTS, **feature)
     xyz, mask = range_filter(xyz, mask, min_range, max_range)
-    g_xyz, g_rng, g_mask = organize(xyz, mask, f["rings"], f["width"])
+    g_xyz, g_rng, g_mask, *g_times = organize(xyz, mask, f["rings"], f["width"], times)
     R, W = g_rng.shape
     half = f["nms_half"]
     c, cvalid = _curvature(g_xyz, g_rng, g_mask, half)
@@ -148,6 +152,7 @@ def loam_features(xyz, mask, feature: dict, min_range: float, max_range: float):
     def gather(idx, vals):
         cols = idx + base
         pts = g_xyz[ring.expand(cols.shape), cols]
-        return pts.reshape(-1, 3), (vals > -INF / 2).reshape(-1)
+        out = (pts.reshape(-1, 3), (vals > -INF / 2).reshape(-1))
+        return out + tuple(t[ring.expand(cols.shape), cols].reshape(-1) for t in g_times)
 
     return gather(e_idx, e_val), gather(s_idx, s_val)

@@ -1,9 +1,10 @@
 """The system under test: the port's ``MultiLidarSystem``, built from a
 configuration file of this benchmark, and the few things the harness reads
-from it (returned poses, the tracker's state before a frame, the keyframe
-store and the pose graph after the flush, the loop verifications and the
-localizations it accepts, the backend's stage timer, the worker's backlog)
-and the wrapper that records the k-NN kernel's shapes.
+from it (returned poses, the tracker's state before a frame, the IMU filter's
+state around each frame, the keyframe store and the pose graph after the
+flush, the loop verifications and the localizations it accepts, the backend's
+stage timer, the worker's backlog) and the wrapper that records the k-NN
+kernel's shapes.
 This module is the only one of the benchmark that imports the program.
 """
 from __future__ import annotations
@@ -37,8 +38,56 @@ def close(system) -> None:
         system._async.close()
 
 
-def process(system, scan, stamp: float):
-    return system.process(PointBatch(*scan), stamp)
+def process(system, frame, stamp: float):
+    """One frame, (scan, IMU window or None), in the one call a caller makes:
+    the window goes in as ``gyro, acc, imu_dts`` where there is one."""
+    scan, window = frame
+    if window is None:
+        return system.process(PointBatch(*scan), stamp)
+    gyro, acc, dts = window
+    return system.process(PointBatch(*scan), stamp, gyro=gyro, acc=acc, imu_dts=dts)
+
+
+def seed_velocity(system, velocity) -> None:
+    """Seed the IMU filter's velocity (body frame of the first scan) where
+    the system has a filter, as a caller on a moving platform does
+    (``scripts/evaluate_torch.py::run_city``)."""
+    if velocity is None or system._lio is None:
+        return
+    lio = system._lio
+    lio.eskf = lio.eskf._replace(v=torch.as_tensor(velocity, dtype=torch.float32,
+                                                   device=lio.device))
+
+
+FILTER_FIELDS = ("p", "v", "q", "ba", "bg", "cov")
+
+
+def record_filters(system):
+    """A dict that gains, for each frame the system tracks from now on, its
+    stamp -> (the IMU filter's state before the frame, after it): references
+    to the system's own tensors (the filter is a pure function of its state,
+    so holding them copies nothing), taken around the LIO tracker's own call.
+    None where the system has no filter."""
+    lio = system._lio
+    if lio is None:
+        return None
+    records = {}
+    orig = lio.process_scan
+
+    def recording(edge, surf, timestamp, *a, **kw):
+        before = lio.eskf
+        out = orig(edge, surf, timestamp, *a, **kw)
+        records[float(timestamp)] = (before, lio.eskf)
+        return out
+
+    lio.process_scan = recording
+    return records
+
+
+def filter_payload(state) -> dict:
+    """Host float32 copies of a filter state's fields."""
+    return {k: getattr(state, k).detach().to(torch.float32).cpu().numpy()
+            for k in FILTER_FIELDS}
 
 
 def localizing(system) -> bool:
@@ -85,11 +134,13 @@ def tracker_before(system):
 def tracker_state_payload(before, after) -> dict:
     """What the check reads of the tracker around one frame: of the state it
     started from, its local map's ring (write index, fill count and point
-    masks); of the state it left, the pose and the ring slot the frame would
-    take."""
+    masks) and what its motion gates read (smoothed speed, rejection
+    streak); of the state it left, the pose and the ring slot the frame
+    would take."""
     slot = int(before.edge_map.write_idx)
     out = {"ring": {"write_idx": slot, "count": int(before.edge_map.count),
-                    "edge_mask": before.edge_map.mask.cpu(), "surf_mask": before.surf_map.mask.cpu()}}
+                    "edge_mask": before.edge_map.mask.cpu(), "surf_mask": before.surf_map.mask.cpu()},
+           "gate": {"speed_ema": float(before.speed_ema), "reject_streak": int(before.reject_streak)}}
     if after is not None:
         out["after"] = {
             "pose": after.pose.cpu(),

@@ -2,6 +2,7 @@
 system sustains:
 
     python3 benchmark/sweep.py --workload <name> --seed <n> --seconds <s> --rates <r> [<r> ...]
+        [--root <checkout>]
 
 One process: the cell's set-up once, then for each rate a new system serves
 frames 0 .. rate × seconds of the course at that rate. A rate is sustained
@@ -15,7 +16,7 @@ import os
 import statistics
 import sys
 import tempfile
-import time
+from pathlib import Path
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -28,18 +29,21 @@ def main():
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--rates", type=float, nargs="+", required=True)
+    ap.add_argument("--root", default=str(harness.ROOT),
+                    help="the checkout whose BENCHMARK.json names the cell")
     args = ap.parse_args()
     import torch
 
     from benchmark import sut, traffic as traffic_mod
 
-    cell, config, mix, _, _, _, _ = harness.load_spec(args.workload)
+    cell, config, mix, _, _, _, _ = harness.load_spec(args.workload, Path(args.root))
     device = torch.device("cuda:0")
     n_max = int(max(args.rates) * args.seconds) + 1
     tr = traffic_mod.Traffic(mix, config["sensor"], args.seed, device, n_max)
-    pool = [tr.scan(k) for k in range(n_max)]
+    pool = [tr.frame(k) for k in range(n_max)]
     with tempfile.TemporaryDirectory(prefix="sweep-") as tmp:
         warm = sut.build(config, device, os.path.join(tmp, "warm"))
+        sut.seed_velocity(warm, tr.initial_velocity())
         for k in range(mix.get("warmup_frames", 3)):
             sut.process(warm, pool[k], tr.stamp(k))
         warm.flush()
@@ -47,6 +51,7 @@ def main():
         sut.close(warm)
         for i, rate in enumerate(args.rates):
             system = sut.build(config, device, os.path.join(tmp, f"r{i}"))
+            sut.seed_velocity(system, tr.initial_velocity())
             n = int(rate * args.seconds)
             w = harness.open_window(sut, system, tr, pool[:n], rate)
             sut.close(system)

@@ -19,7 +19,7 @@ import pytest
 
 from benchmark import harness
 
-CELLS = ["vlp16_default.revisit", "hdl64_city.paced", "vlp16_default.explore"]
+CELLS = ["hdl64_city.paced", "vlp16_default.explore"]
 SEEDS = [3000000001, 3000000002, 3000000003]
 
 
