@@ -15,9 +15,17 @@ computed every scan and kept where ``solve_ok``. ``process_scan`` therefore
 reads nothing back: it returns the pose as a tensor, and the caller's one
 read-back of the frame (``MultiLidarSystem._read``) carries it with
 the frame's flags. The IMU window goes to the card in one copy.
+
+A ``timer`` (:class:`..utils.profiling.StageTimer`) records the step's
+stages as spans: ``lio.propagate`` (the window's copy, the propagation, the
+failure test and the masked reset), ``lio.deskew`` (both clouds),
+``lio.register`` (``tracker_step`` with the prediction) and ``lio.correct``
+(the pose correction and its selection). A scan without an IMU window
+records neither of the first two.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -58,11 +66,13 @@ class LioTracker:
 
     ``eskf``, ``tracker_state`` and ``prev_pose`` are tensors on ``device``;
     ``n_scans`` counts on the host; ``failures`` reads the device counter of
-    failure resets (one read-back, when asked)."""
+    failure resets (one read-back, when asked); ``timer`` records the step's
+    spans (none without one)."""
 
-    def __init__(self, config: LioConfig = LioConfig(), device="cuda"):
+    def __init__(self, config: LioConfig = LioConfig(), device="cuda", timer=None):
         self.config = config
         self.device = torch.device(device)
+        self._span = timer if timer is not None else (lambda label: contextlib.nullcontext())
         self.tracker_state = tracker_init(config.tracker, self.device)
         self.eskf: EskfState = eskf_init_state(config.eskf, device=self.device)
         self._init_cov = self.eskf.cov
@@ -118,29 +128,34 @@ class LioTracker:
         the IMU window — the LWIO configuration (wheel velocity +
         non-holonomic constraints fused in the same propagation)."""
         cfg = self.config
+        span = self._span
         prediction = None
         if self.n_scans > 0 and gyro is not None and len(gyro) > 0:
-            state = self._propagate(gyro, acc, imu_dts, wheel_speeds)
-            # reset velocity/bias, keep pose (LIO-SAM resets its graph)
-            failed = self._failed(state)
-            zeros = torch.zeros_like(state.v)
-            reset = state._replace(v=zeros, ba=zeros, bg=zeros, cov=self._init_cov)
-            self.eskf = _select(failed, reset, state)
-            self._failures = self._failures + failed.to(torch.int32)
-            prediction = se3.make_pose(self.eskf.q, self.eskf.p)
+            with span("lio.propagate"):
+                state = self._propagate(gyro, acc, imu_dts, wheel_speeds)
+                # reset velocity/bias, keep pose (LIO-SAM resets its graph)
+                failed = self._failed(state)
+                zeros = torch.zeros_like(state.v)
+                reset = state._replace(v=zeros, ba=zeros, bg=zeros, cov=self._init_cov)
+                self.eskf = _select(failed, reset, state)
+                self._failures = self._failures + failed.to(torch.int32)
+                prediction = se3.make_pose(self.eskf.q, self.eskf.p)
             if cfg.deskew_enabled and edge.attr.shape[-1] > 0:
-                motion = se3.pose_between(self.prev_pose, prediction)
-                edge = deskew(edge, edge.attr[:, ATTR_TIME], motion)
-                surf = deskew(surf, surf.attr[:, ATTR_TIME], motion)
+                with span("lio.deskew"):
+                    motion = se3.pose_between(self.prev_pose, prediction)
+                    edge = deskew(edge, edge.attr[:, ATTR_TIME], motion)
+                    surf = deskew(surf, surf.attr[:, ATTR_TIME], motion)
 
-        self.tracker_state, out = tracker_step(
-            self.tracker_state, edge, surf, timestamp, cfg.tracker, prediction=prediction,
-        )
+        with span("lio.register"):
+            self.tracker_state, out = tracker_step(
+                self.tracker_state, edge, surf, timestamp, cfg.tracker, prediction=prediction,
+            )
         # registration corrects the filter — but a solve the tracker's gates
         # rejected (out.pose fell back to the prediction) is not a
         # measurement: the update is kept only where solve_ok
-        corrected = eskf_update_pose(self.eskf, out.pose, cfg.reg_pos_std, cfg.reg_rot_std)
-        self.eskf = _select(out.solve_ok, corrected, self.eskf)
+        with span("lio.correct"):
+            corrected = eskf_update_pose(self.eskf, out.pose, cfg.reg_pos_std, cfg.reg_rot_std)
+            self.eskf = _select(out.solve_ok, corrected, self.eskf)
         self.prev_pose = out.pose
         self.n_scans += 1
         return out.pose, out

@@ -364,15 +364,7 @@ class MultiLidarSystem:
         # during calibration only the primary's slice is populated
         self.tracker_config = tracker_config_for(config)
         self.tracker_state = tracker_init(self.tracker_config, self.device)
-        self._lio = None
         self._enu = None  # local ENU frame, anchored by the first GNSS fix
-        if config.use_imu:
-            # under IMU the per-frame prediction is physically grounded, so
-            # the prediction-trust gate is safe and necessary: a coherent
-            # mover drags the registration while the IMU knows better —
-            # reject the dragged solve, coast on the propagated pose
-            self._lio = LioTracker(
-                LioConfig(tracker=self.tracker_config._replace(pred_trust_k=0.3)), self.device)
         if backend is not None:
             if backend.db.device.type != self.device.type:
                 raise ValueError(
@@ -387,6 +379,15 @@ class MultiLidarSystem:
             self.backend = LifelongBackend(db=db, config=config.lifelong, loop_config=config.loop)
         # the frame's spans go where the backend's stages and the worker's go
         self.timer = self.backend.timer
+        self._lio = None
+        if config.use_imu:
+            # under IMU the per-frame prediction is physically grounded, so
+            # the prediction-trust gate is safe and necessary: a coherent
+            # mover drags the registration while the IMU knows better —
+            # reject the dragged solve, coast on the propagated pose
+            self._lio = LioTracker(
+                LioConfig(tracker=self.tracker_config._replace(pred_trust_k=0.3)), self.device,
+                timer=self.timer)
         self._async = None
         if config.async_backend:
             from ..backend.async_backend import AsyncBackend
@@ -552,7 +553,9 @@ class MultiLidarSystem:
 
         The frame records its spans on ``timer`` (the backend's): ``frame``
         around the whole call, and inside it ``frame.featurize``,
-        ``frame.track``, ``frame.read_back`` and ``frame.handoff``."""
+        ``frame.track``, ``frame.read_back`` and ``frame.handoff``; under
+        ``use_imu`` the LIO step's spans (``lio.*``) lie inside
+        ``frame.track``."""
         with self.timer("frame"):
             read, edge, surf, scan_grid = self._front_end(
                 scan, timestamp, gyro, acc, imu_dts, wheel_speeds)
