@@ -6,8 +6,8 @@
 Needs one CUDA device; exits non-zero without one, or when any phase fails.
 Phases, one line each:
 
-1. build   — compile ``lmsf_slam_tpu_torch/csrc/knn.cu`` and
-             ``csrc/projector.cu`` with nvcc for sm_90a (into
+1. build   — compile ``lmsf_slam_tpu_torch/csrc/knn.cu``,
+             ``csrc/projector.cu`` and ``csrc/eskf.cu`` with nvcc for sm_90a (into
              ``build/kernels/``, one nvcc a source, started together) and
              print ptxas' register, shared-memory and spill summary;
 2. kernel  — hold the k-NN kernels (``knn_cuda``: the scan over reference
@@ -136,15 +136,22 @@ Phases, one line each:
              every association through the k-NN and projector kernels (launch
              counters), no device-to-host copy in the filter's own work and one
              (the frame's read-back) on each profiled frame without a keyframe,
-             the first 5 frames within 1e-3 m of the same frames on the CPU; a
+             the first 5 frames within 1e-3 m of the same frames on the CPU,
+             every IMU window through the ESKF kernel (one launch a window) and
+             the kernel held to its plain version (``eskf_run``'s loop) on the
+             card over every window of the course, each from the filter state
+             its frame started from and from that state with a zero covariance,
+             so that the process noise alone shows in every block
+             (``eskf_gaps``); a
              GNSS
              fix after frame 0 of a second, short run rides the next keyframe as
              a prior at the ENU origin; then ``FactorGraphLio`` over 40 of the
              course's IMU windows with the LIO poses as priors, card against
              CPU to 1e-4 m, chi2 falling at every solve. Prints frame times,
              device events and read-backs a frame beside the fused frame's, the
-             ESKF propagation's time a frame, the backend's stages and the peak
-             device memory;
+             ESKF propagation's time a frame, the kernel's device time at a
+             10-sample window beside its bound and the plain version's time and
+             launches, the backend's stages and the peak device memory;
 12. schur  — the submap Schur solve (``parallel/schur.py``): bench.py's
              pose graph (a 1905-vertex helix with 96 loop edges, padded to
              2048 vertices and edges, the tail and vertex 0 fixed) at 16
@@ -417,6 +424,13 @@ LIO_PROFILE_FRAMES = range(100, 106)  # frames profiled one by one (not timed)
 LIO_GNSS_LLA = (48.0, 11.0, 500.0)  # the fix that anchors the ENU frame
 LIO_GRAPH_WINDOWS = 40  # IMU windows through FactorGraphLio
 LIO_GRAPH_AGREE = 1e-4  # m, card vs CPU
+# the ESKF kernel against its plain version, both float32 on the card (the
+# reasons are in tests/test_torch_eskf_cuda.py): position and velocity within
+# ESKF_ATOL + ESKF_RTOL·|x|, the attitude within ESKF_ANGLE rad, the biases
+# equal, each covariance entry P_rc within ESKF_COV_ATOL + ESKF_COV_RTOL ·
+# sqrt(P_rr P_cc), its own correlation's scale
+ESKF_ATOL, ESKF_RTOL, ESKF_ANGLE = 1e-6, 1e-6, 1e-6
+ESKF_COV_RTOL, ESKF_COV_ATOL = 1e-5, 1e-30
 SCHUR_SUBMAPS = 16  # config/default.yaml's schur_submaps
 SCHUR_ATE_LIMIT = 1.0  # m, bench.py's own assertion on the solve
 # m, card vs CPU poses of the merged sessions' solve: 12 float32 GN steps at
@@ -2269,6 +2283,78 @@ def course_velocity(course):
     return va.astype(np.float32)
 
 
+def eskf_gaps(got, want):
+    """Each gap of an ESKF state ``got`` to ``want`` over its tolerance (the
+    pair agrees where every value is ≤ 1): position and velocity, the biases
+    (0 when equal, else inf), the attitude angle, and the covariance, each
+    entry on the scale of its own correlation, sqrt(P_rr P_cc)."""
+    import torch
+
+    from lmsf_slam_tpu_torch.common import se3
+
+    g = {}
+    for k in ("p", "v"):
+        a, b = getattr(got, k).double(), getattr(want, k).double()
+        g[k] = float(torch.max(torch.abs(a - b) / (ESKF_ATOL + ESKF_RTOL * torch.abs(b))))
+    for k in ("ba", "bg"):
+        g[k] = 0.0 if torch.equal(getattr(got, k), getattr(want, k)) else float("inf")
+    dq = se3.so3_log(se3.quat_mul(se3.quat_conj(got.q.double()), want.q.double()))
+    g["q"] = float(torch.linalg.vector_norm(dq)) / ESKF_ANGLE
+    cov = want.cov.double()
+    d = torch.sqrt(torch.clamp(torch.diagonal(cov), min=0.0))
+    tol = ESKF_COV_ATOL + ESKF_COV_RTOL * torch.outer(d, d)
+    g["cov"] = float(torch.max(torch.abs(got.cov.double() - cov) / tol))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    return g if finite else {k: float("inf") for k in g}
+
+
+def eskf_plain(state, gyro, acc, dt, config):
+    """The ESKF kernel's plain version: ``eskf_run``'s final state without
+    corrections."""
+    from lmsf_slam_tpu_torch.estimator.eskf import eskf_run
+
+    return eskf_run(state, gyro, acc, dt, None, None, config=config)[0]
+
+
+def eskf_window(n, seed):
+    """(gyro (n,3), acc (n,3), dts (n,)) float32 numpy: a turning, braking
+    100 Hz IMU with noise, for the ESKF kernel's checks."""
+    g = np.random.default_rng(seed)
+    gyro = g.normal(scale=0.05, size=(n, 3)) + [0.01, -0.02, 0.3]
+    acc = g.normal(scale=0.2, size=(n, 3)) + [-0.8, 0.1, 9.81]
+    dts = np.full(n, 0.01) + g.uniform(-1e-4, 1e-4, n)
+    return tuple(np.asarray(x, np.float32) for x in (gyro, acc, dts))
+
+
+def eskf_start(offset, device="cpu"):
+    """The filter's initial state moving at 8 m/s, and with ``offset`` turned
+    by 0.4 rad about a tilted axis with biases of a few hundredths."""
+    import torch
+
+    from lmsf_slam_tpu_torch.common import se3
+    from lmsf_slam_tpu_torch.estimator.eskf import eskf_init_state
+
+    st = eskf_init_state(device=device)
+    st = st._replace(v=torch.tensor([8.0, 0.5, 0.0], device=device))
+    if offset:
+        st = st._replace(q=se3.so3_exp_quat(torch.tensor([0.1, -0.2, 0.4], device=device)),
+                         ba=torch.tensor([0.03, -0.02, 0.05], device=device),
+                         bg=torch.tensor([-0.004, 0.002, 0.003], device=device))
+    return st
+
+
+def eskf_bound_ms(n):
+    """The least time of an ``n``-sample propagation on the card: the larger
+    of its operations (two 15×15×15 products a sample, 2 FLOP a
+    multiply-add, and ~300 for the nominal state) at 67 TFLOP/s (FP32) and
+    its bytes (the state and covariance in and out, 7 floats a sample) at
+    3.35 TB/s. Returns (ms, "operations" or "bytes")."""
+    ops = n * (2 * 15**3 * 2 + 300)
+    nbytes = 2 * (16 + 15 * 15) * 4 + n * 7 * 4
+    by_ops, by_bytes = ops / 67e12, nbytes / 3.35e12
+    return max(by_ops, by_bytes) * 1e3, "operations" if by_ops >= by_bytes else "bytes"
+
+
 def lio_system(device, course):
     """A fresh IMU-aided system whose filter starts with the course velocity."""
     import torch
@@ -2324,14 +2410,16 @@ def phase_lio(fused_profile):
     from lmsf_slam_tpu_torch import _build
     from lmsf_slam_tpu_torch.datasets import make_city_imu
     from lmsf_slam_tpu_torch.evaluation import ate_stats
+    from lmsf_slam_tpu_torch.ops import knn as K
 
     course = CityCourse()
     windows = make_city_imu(course.traj)  # 100 Hz, seed 7, the whole course as the reference
     system = lio_system("cuda", course)
     lio = system._lio
-    propagate, spans = lio._propagate, []
+    propagate, spans, seen = lio._propagate, [], []
 
     def timed_propagate(*args, **kw):  # device span (CUDA events) and host ms, no wait
+        seen.append((lio.eskf, args))  # the state the frame started from, its window
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         t0 = time.perf_counter()
@@ -2397,6 +2485,37 @@ def phase_lio(fused_profile):
         torch.cuda.synchronize()
     filter_counts = profile_counts(prof, 1)
 
+    # the ESKF kernel against its plain version over every window of the
+    # course, each from the filter state its frame started from and from that
+    # state with a zero covariance (the process noise alone, each block at its
+    # own scale); then timed at a 10-sample window beside its bound and the
+    # plain version
+    from lmsf_slam_tpu_torch.estimator import eskf as E
+
+    cfg = lio.config.eskf
+    worst = {}
+    for st, window in seen:
+        w = [torch.as_tensor(np.asarray(x, np.float32), device="cuda") for x in window[:3]]
+        for s0 in (st, st._replace(cov=torch.zeros_like(st.cov))):
+            g = eskf_gaps(E.eskf_propagate_cuda(s0, *w, cfg), eskf_plain(s0, *w, cfg))
+            worst = {k: max(x, worst.get(k, 0.0)) for k, x in g.items()}
+    w = [torch.as_tensor(np.asarray(x, np.float32), device="cuda") for x in windows[1]]
+    st = lio.eskf
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eskf_plain(st, *w, cfg)
+        torch.cuda.synchronize()
+    bound_ms, bound_by = eskf_bound_ms(len(windows[1][0]))
+    eskf = {
+        "samples": len(windows[1][0]), "windows_compared": len(seen),
+        "gaps_over_tolerance": worst,
+        "ms": cuda_ms(lambda: E.eskf_propagate_cuda(st, *w, cfg), 200),
+        "call_ms": cuda_ms(lambda: E.eskf_propagate_cuda(st, *w, cfg), 200, queued=False),
+        "plain_ms": cuda_ms(lambda: eskf_plain(st, *w, cfg), 10, queued=False),
+        "plain_launches": profile_counts(prof, 1)["device_events"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "empty_launch_ms": cuda_ms(K.empty_launch_cuda, 200),
+    }
+
     # the same frames on the CPU (plain k-NN): the kept scans, the same windows
     cpu = lio_system("cpu", course)
     t0 = time.perf_counter()
@@ -2445,6 +2564,7 @@ def phase_lio(fused_profile):
         "stage_ms": stats, "peak_device_bytes": int(peak),
         "knn_launches": launches.get("knn", 0), "knn_merge_launches": launches.get("knn_merge", 0),
         "projector_launches": launches.get("projector", 0),
+        "eskf_launches": launches.get("eskf", 0), "eskf": eskf,
         "cpu_frames": LIO_CPU_FRAMES, "cpu_max_abs_pose_diff": dev_cpu, "cpu_frame_ms": cpu_ms,
         "gnss_keyframes": int(gdb.n_keyframes), "gnss_prior": gdb.gnss_pos[1].tolist()
         if gdb.n_keyframes >= 2 else None,
@@ -2486,7 +2606,16 @@ def phase_lio(fused_profile):
     log("lio", f"knn launches {out['knn_launches']} (+{out['knn_merge_launches']} merges): "
         f"{LIO_KNN_PER_FRAME} a frame and "
         f"{(out['knn_launches'] - LIO_KNN_PER_FRAME * LIO_FRAMES) / max(n_kf_frames, 1):.1f} more "
-        "a keyframe frame")
+        f"a keyframe frame; projector launches {out['projector_launches']}; ESKF launches "
+        f"{out['eskf_launches']} ({LIO_FRAMES - 1} windows)")
+    log("lio", f"ESKF kernel against its plain version over the course's {len(seen)} windows, "
+        "from the frame's state and from it with a zero covariance, largest gaps over their "
+        "tolerances: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; at a {eskf['samples']}-sample window: kernel {eskf['ms']:.4f} ms "
+        f"({eskf['call_ms']:.4f} ms a call at Python's pace), plain {eskf['plain_ms']:.3f} ms "
+        f"and {eskf['plain_launches']:.0f} launches, bound {bound_ms:.3g} ms ({bound_by}), "
+        f"empty launch {eskf['empty_launch_ms']:.5f} ms")
     log("lio", f"GNSS: a fix after frame 0 of a second run, the next keyframe (of "
         f"{gdb.n_keyframes}) carries {out['gnss_prior']}")
     log("lio", f"FactorGraphLio over {LIO_GRAPH_WINDOWS} IMU windows ({resets} failure resets): "
@@ -2502,6 +2631,10 @@ def phase_lio(fused_profile):
         check(launches.get(name, 0) > k * LIO_FRAMES,
               f"{name}: {launches.get(name, 0)} launches on the LIO path, its frames alone make "
               f"{k * LIO_FRAMES}")
+    check(launches.get("eskf", 0) == LIO_FRAMES - 1,
+          f"{launches.get('eskf', 0)} ESKF kernel launches for {LIO_FRAMES - 1} IMU windows")
+    check(max(worst.values()) <= 1.0, f"the ESKF kernel left its plain version: gaps over their "
+          f"tolerances {worst}")
     check(filter_counts["dtoh"] == 0,
           f"the filter's work read back {filter_counts['dtoh']:g} times, not none")
     check(bool(quiet) and all(c["dtoh"] == 1 for c in quiet),
@@ -3974,7 +4107,7 @@ def main(argv=None):
     from lmsf_slam_tpu_torch.ops import knn as K
 
     t_start = time.perf_counter()
-    sources = ["knn", "projector"]
+    sources = ["knn", "projector", "eskf"]
     _build.build(sources)  # one nvcc a source, all started together
     info = {}
     for name in sources:
@@ -4138,6 +4271,17 @@ def main(argv=None):
                                for name, c in jacobi.items() if c["matrices"]},
         **{f"{k}_{name}": v for name, r in proj["timed"].items() for k, v in r.items()
            if k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+    }, {
+        "name": "eskf",
+        "route": "cuda",
+        "source": "lmsf_slam_tpu_torch/csrc/eskf.cu",
+        # no TPU kernel: the reference's lax.scan over eskf_predict
+        "replaces": "lmsf_slam_tpu/estimator/eskf.py:268",
+        "launches": lio["eskf_launches"],
+        "launches_lio": lio["eskf_launches"],
+        **{k: lio["eskf"][k] for k in ("ms", "call_ms", "plain_ms", "plain_launches", "bound_ms",
+                                        "bound_by", "empty_launch_ms", "gaps_over_tolerance")},
+        "shape": f"one {lio['eskf']['samples']}-sample window a launch (the path's)",
     }]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

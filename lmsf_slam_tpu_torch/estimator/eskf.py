@@ -12,7 +12,10 @@ Counterpart of ``lmsf_slam_tpu/estimator/eskf.py``:
 
 The state is a NamedTuple of float32 tensors on one device. The reference
 runs a whole log as one ``lax.scan``; here :func:`eskf_run` is a Python loop
-over the samples that launches work and reads nothing back. Every decision
+over the samples that launches work and reads nothing back. A window without
+corrections propagates through :func:`eskf_propagate`: on the card one
+launch of the hand-written kernel ``csrc/eskf.cu`` (:func:`eskf_propagate_cuda`),
+on the CPU :func:`eskf_run`'s loop. Every decision
 the reference takes with ``jnp.where`` is a ``torch.where`` here, and the
 3×3 and 6×6 innovation covariances are inverted with ``torch.linalg.inv_ex``,
 which does not check its result on the host (``torch.linalg.inv`` would
@@ -22,11 +25,13 @@ copy from pageable host memory waits for the card as well.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..common import se3
 
 # error-state block offsets
@@ -275,6 +280,90 @@ def eskf_run(
         vs.append(state.v)
         covs.append(torch.diagonal(state.cov))
     return state, EskfTrajectory(torch.stack(ps), torch.stack(vs), torch.stack(covs))
+
+
+_KERNEL = "eskf"
+_PTR, _I64, _INT, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+_typed: set[str] = set()
+_STATE_SHAPES = (("p", (3,)), ("v", (3,)), ("q", (4,)), ("ba", (3,)), ("bg", (3,)),
+                 ("cov", (15, 15)))
+
+
+def _library():
+    """``csrc/eskf.cu`` built and loaded at first use, its entry point typed
+    (an untyped pointer or 64-bit stride would be cut to 32 bits)."""
+    lib = _build.load(_KERNEL)
+    if _KERNEL in _typed:
+        return lib
+    with _build.lock:
+        if _KERNEL not in _typed:
+            fn = lib.eskf_propagate_launch
+            fn.restype = _INT
+            fn.argtypes = ([_PTR] * 6 + [_PTR, _I64, _I64, _PTR, _I64, _I64, _PTR, _I64, _INT]
+                           + [_F32] * 6 + [_PTR] * 7)
+            _typed.add(_KERNEL)
+    return lib
+
+
+def eskf_propagate_cuda(
+    state: EskfState,
+    gyro: torch.Tensor,
+    acc: torch.Tensor,
+    dt: torch.Tensor,
+    config: EskfConfig = EskfConfig(),
+) -> EskfState:
+    """:func:`eskf_run`'s final state without corrections, as one launch of
+    ``csrc/eskf.cu`` on the card: the window's samples read in place through
+    their strides, the new state written into tensors allocated here. Nothing
+    is read back, and no trajectory is kept."""
+    dev = gyro.device
+    if dev.type != "cuda":
+        raise ValueError(f"the ESKF kernel needs CUDA tensors, got {dev}")
+    n = gyro.shape[0]
+    for name, x, shape in (("gyro", gyro, (n, 3)), ("acc", acc, (n, 3)), ("dt", dt, (n,)),
+                           *((f, getattr(state, f), s) for f, s in _STATE_SHAPES)):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be a float32 {shape} tensor on {dev}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    src = [x.contiguous() for x in state]
+    out = EskfState(*(torch.empty_like(x) for x in src))
+    rates = (0.0, config.acc_noise**2, config.gyro_noise**2, config.acc_bias_noise**2,
+             config.gyro_bias_noise**2)  # rounded to float32 as _noise_rates rounds them
+    lib = _library()
+    with _build.on_device(dev):
+        rc = lib.eskf_propagate_launch(
+            *(x.data_ptr() for x in src),
+            gyro.data_ptr(), gyro.stride(0), gyro.stride(1),
+            acc.data_ptr(), acc.stride(0), acc.stride(1), dt.data_ptr(), dt.stride(0), n,
+            *rates, config.gravity, *(x.data_ptr() for x in out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:  # -1: an empty window
+        raise RuntimeError(f"ESKF kernel launch failed: CUDA error {rc}")
+    _build.count_launch(_KERNEL)
+    return out
+
+
+def eskf_propagate(
+    state: EskfState,
+    gyro: torch.Tensor,  # (N,3), N >= 1
+    acc: torch.Tensor,  # (N,3)
+    dt: torch.Tensor,  # (N,) step to the NEXT sample
+    config: EskfConfig = EskfConfig(),
+    wheel_speed: torch.Tensor | None = None,
+) -> EskfState:
+    """The state after predicting through every sample of an IMU window, with
+    no correction: CUDA tensors take the kernel (:func:`eskf_propagate_cuda`;
+    it launches or raises, there is no fallback), CPU tensors :func:`eskf_run`.
+    The kernel does no wheel update:
+    a window with wheel speeds goes through :func:`eskf_run`, and
+    ``wheel_speed`` given here raises."""
+    if wheel_speed is not None:
+        raise ValueError("eskf_propagate does no wheel update; eskf_run does")
+    if gyro.shape[0] == 0:
+        raise ValueError("an empty IMU window")
+    if gyro.device.type == "cpu":
+        return eskf_run(state, gyro, acc, dt, None, None, config=config)[0]
+    return eskf_propagate_cuda(state, gyro, acc, dt, config)
 
 
 def eskf_update_pose(

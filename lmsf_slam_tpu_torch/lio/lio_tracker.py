@@ -14,7 +14,10 @@ the norm test and the failure count a device counter; the pose correction is
 computed every scan and kept where ``solve_ok``. ``process_scan`` therefore
 reads nothing back: it returns the pose as a tensor, and the caller's one
 read-back of the frame (``MultiLidarSystem._read``) carries it with
-the frame's flags. The IMU window goes to the card in one copy.
+the frame's flags. The IMU window goes to the card in one copy. A window
+without wheel speeds propagates in one launch (``eskf_propagate``, the
+kernel ``csrc/eskf.cu`` on the card); one with them through ``eskf_run``,
+whose loop does the wheel update after each prediction.
 
 A ``timer`` (:class:`..utils.profiling.StageTimer`) records the step's
 stages as spans: ``lio.propagate`` (the window's copy, the propagation, the
@@ -38,6 +41,7 @@ from ..estimator.eskf import (
     EskfState,
     _select,
     eskf_init_state,
+    eskf_propagate,
     eskf_run,
     eskf_update_pose,
 )
@@ -95,12 +99,12 @@ class LioTracker:
         if wheel_speeds is not None:
             cols.append(np.broadcast_to(np.asarray(wheel_speeds, np.float32), (n,)).reshape(n, 1))
         window = torch.as_tensor(np.concatenate(cols, axis=1), device=self.device)  # one copy
-        wheel = {}
-        if wheel_speeds is not None:
-            wheel = dict(wheel_speed=window[:, 7], wheel_std=self.config.wheel_std)
+        if wheel_speeds is None:
+            return eskf_propagate(self.eskf, window[:, 0:3], window[:, 3:6], window[:, 6],
+                                  self.config.eskf)
         final, _ = eskf_run(
             self.eskf, window[:, 0:3], window[:, 3:6], window[:, 6], None, None,
-            config=self.config.eskf, **wheel,
+            config=self.config.eskf, wheel_speed=window[:, 7], wheel_std=self.config.wheel_std,
         )
         return final
 

@@ -74,6 +74,9 @@ IMU_MODULES = ("estimator", "estimator.eskf", "estimator.preintegration", "estim
                "datasets.simulator")
 # a kernel's wrapper, which also loads its library with ctypes
 KERNEL_MODULES = ("ops.projector",)
+# the modules that load a kernel's library with ctypes: the projector's
+# wrapper, and the IMU stack's filter (the ESKF propagation's kernel)
+CTYPES_MODULES = KERNEL_MODULES + ("estimator.eskf",)
 # the submap Schur solve and the hand-eye calibration of several LiDARs
 MULTI_MODULES = ("parallel", "parallel.schur", "calibration", "calibration.handeye")
 
@@ -114,7 +117,7 @@ def test_lifelong_modules_name_no_jax(module):
     assert imported and not any(_forbidden(n) for n in imported), imported
     roots = {n.split(".")[0] for n in imported if not n.startswith(".")}
     allowed = {"__future__", "contextlib", "threading", "time", "collections", "typing", "math",
-               "numpy", "torch"} | ({"ctypes"} if module in KERNEL_MODULES else set())
+               "numpy", "torch"} | ({"ctypes"} if module in CTYPES_MODULES else set())
     assert roots <= allowed, roots
 
 
