@@ -13,7 +13,7 @@ card with the reference's numbers: the failure reset is a ``torch.where`` on
 the norm test and the failure count a device counter; the pose correction is
 computed every scan and kept where ``solve_ok``. ``process_scan`` therefore
 reads nothing back: it returns the pose as a tensor, and the caller's one
-read-back of the frame (``MultiLidarSystem._read``) carries it with
+read-back of the frame (``system/ml_system.py::_read_back``) carries it with
 the frame's flags. The IMU window goes to the card in one copy. A window
 without wheel speeds propagates in one launch (``eskf_propagate``, the
 kernel ``csrc/eskf.cu`` on the card); one with them through ``eskf_run``,

@@ -9,10 +9,9 @@ many there are (see :func:`projector_plain` for the function).
 
 - CUDA tensors go to :func:`projector_cuda` — ``csrc/projector.cu``: a
   screen (one LDLᵀ that proves every eigenvalue above the floor, then P = I),
-  else a warp-parallel round-robin Jacobi in float64, one warp a matrix.
-  ``torch.linalg.eigh`` on the card checks its result on the host (two
-  device-to-host copies and a wait at every association); the kernel reads
-  nothing back. It launches or raises; there is no fallback.
+  else cyclic Jacobi in float64, one thread a matrix. It reads nothing back
+  (``torch.linalg.eigh`` on the card copies to the host twice and waits at
+  every association), and launches or raises; there is no fallback.
 - CPU tensors go to :func:`projector_plain` (``torch.linalg.eigh``).
 
 :func:`projector_jacobi_plain` (with :func:`projector_screen_plain`) is a
@@ -64,13 +63,6 @@ def projector_plain(H, nmatch, damping: float, degen_rel: float, degen_thresh: f
             torch.sum(ok, dim=-1, dtype=torch.int32))
 
 
-def _round_pairs(r: int):
-    """The 3 disjoint pairs (p < q) of round r of a sweep, in the kernel's
-    circle-method order: (r, 5), then ((r+k) % 5, (r−k) % 5) for k = 1, 2."""
-    pairs = [(r, 5)] + [((r + k) % 5, (r - k) % 5) for k in (1, 2)]
-    return [(min(p, q), max(p, q)) for p, q in pairs]
-
-
 def _kernel_input(H, nmatch, damping, degen_rel, degen_thresh):
     """(A float64 from H's lower triangle, finite, the float32 floor), as the
     kernel forms them."""
@@ -117,80 +109,56 @@ def projector_screen_plain(H, nmatch, damping: float, degen_rel: float,
     return pd
 
 
-def _turn(x, other, s, tau):
-    """Rutishauser's update ``x + s·(other − τ·x)`` with s and τ negated at
-    the first index of a pair, one operation at a time as the kernel rounds."""
-    return x + s * (other - tau * x)
-
-
 def projector_jacobi_plain(H, nmatch, damping: float, degen_rel: float,
                            degen_thresh: float, screen: bool = True):
     """Plain torch model of the kernel on each matrix of (B, 6, 6), operation
     for operation: the screen (``projector_screen_plain``; P = I, 6
-    directions and 0 sweeps where it passes), then Jacobi in the kernel's
-    round-robin order. A round takes the rotations of its 3 disjoint pairs
-    from the same A (a rotation only where ``|a_pq| > EPS·sqrt(|a_pp
-    a_qq|)``) and applies them as one block: each upper entry of A by the
-    column rotation of its column's pair, then the row rotation of its row's
-    pair, a rotated pair's own block by Rutishauser's diagonal update, the
-    lower triangle mirrored; V by the column rotations. Sweeps until one
-    rotates nothing (or MAX_SWEEPS). ``screen=False`` runs Jacobi on every
-    matrix. Returns (P, n_con, sweeps). Slow; for tests."""
+    directions and 0 sweeps where it passes), then cyclic Jacobi: the pairs
+    in row order, a rotation only where ``|a_pq| > EPS·sqrt(|a_pp a_qq|)``,
+    until a sweep rotates nothing (or MAX_SWEEPS). ``screen=False`` runs
+    Jacobi on every matrix. Returns (P, n_con, sweeps). Slow; for tests."""
     a, finite, thresh = _kernel_input(H, nmatch, damping, degen_rel, degen_thresh)
     B, dev = a.shape[0], a.device
     screened = (projector_screen_plain(H, nmatch, damping, degen_rel, degen_thresh) if screen
                 else torch.zeros(B, dtype=torch.bool, device=dev))
     v = torch.eye(6, dtype=a.dtype, device=dev).expand(B, 6, 6).clone()
-    upper = torch.ones(6, 6, dtype=torch.bool, device=dev).triu()
-    diag = torch.eye(6, dtype=torch.bool, device=dev)
     sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
     active = ~screened
     for _ in range(MAX_SWEEPS):
         if not bool(active.any()):
             break
         rotated = torch.zeros(B, dtype=torch.bool, device=dev)
-        for r in range(5):
-            pairs = _round_pairs(r)
-            p = torch.tensor([pq[0] for pq in pairs], device=dev)
-            q = torch.tensor([pq[1] for pq in pairs], device=dev)
-            part = torch.empty(6, dtype=torch.long, device=dev)
-            part[p], part[q] = q, p
-            app, aqq, apq = a[:, p, p], a[:, q, q], a[:, p, q]
-            do = active[:, None] & (torch.abs(apq) > EPS * torch.sqrt(torch.abs(app * aqq)))
-            if not bool(do.any()):
-                continue
-            rotated |= do.any(dim=1)
-            theta = (aqq - app) / (2.0 * torch.where(do, apq, 1.0))
-            t = torch.where(torch.abs(theta) > 1e150, 0.5 / theta,
-                            torch.copysign(torch.ones_like(theta), theta)
-                            / (torch.abs(theta) + torch.sqrt(theta * theta + 1.0)))
-            c = 1.0 / torch.sqrt(t * t + 1.0)
-            s = t * c
-            tau = s / (1.0 + c)
-            # seen from each index: negated at the first index of its pair
-            rot = torch.empty((B, 6), dtype=torch.bool, device=dev)
-            si, taui, ti = (torch.empty((B, 6), dtype=a.dtype, device=dev) for _ in range(3))
-            rot[:, p], rot[:, q] = do, do
-            si[:, p], si[:, q] = -s, s
-            taui[:, p], taui[:, q] = -tau, tau
-            ti[:, p], ti[:, q] = -t, t
-            rc, sc, tc = rot[:, None, :], si[:, None, :], taui[:, None, :]
-            y = torch.where(rc, _turn(a, a[:, :, part], sc, tc), a)  # columns
-            rr, sr, tr = rot[:, :, None], si[:, :, None], taui[:, :, None]
-            new = torch.where(rr, _turn(y, y[:, part, :], sr, tr), y)  # rows
-            idx = torch.arange(6, device=dev)
-            own = torch.where(rot, a[:, idx, idx] + ti * a[:, idx, part], a[:, idx, idx])
-            new = torch.where(diag, torch.diag_embed(own), new)
-            pair = torch.zeros(6, 6, dtype=torch.bool, device=dev)
-            pair[idx, part] = True
-            new = torch.where(pair & rr, 0.0, new)
-            new = torch.where(upper, new, new.transpose(-2, -1))
-            v = torch.where(rc, _turn(v, v[:, :, part], sc, tc), v)
-            a = new
+        for p in range(6):
+            for q in range(p + 1, 6):
+                apq, app, aqq = a[:, p, q], a[:, p, p], a[:, q, q]
+                do = active & (torch.abs(apq) > EPS * torch.sqrt(torch.abs(app * aqq)))
+                if not bool(do.any()):
+                    continue
+                rotated |= do
+                theta = (aqq - app) / (2.0 * torch.where(do, apq, 1.0))
+                t = torch.where(torch.abs(theta) > 1e150, 0.5 / theta,
+                                torch.copysign(torch.ones_like(theta), theta)
+                                / (torch.abs(theta) + torch.sqrt(theta * theta + 1.0)))
+                c = 1.0 / torch.sqrt(t * t + 1.0)
+                s = t * c
+                tau = s / (1.0 + c)
+                new = a.clone()
+                new[:, p, p] = app - t * apq
+                new[:, q, q] = aqq + t * apq
+                new[:, p, q] = new[:, q, p] = 0.0
+                for k in [k for k in range(6) if k not in (p, q)]:
+                    akp, akq = a[:, k, p], a[:, k, q]
+                    new[:, k, p] = new[:, p, k] = akp - s * (akq + tau * akp)
+                    new[:, k, q] = new[:, q, k] = akq + s * (akp - tau * akq)
+                vp, vq, vnew = v[:, :, p], v[:, :, q], v.clone()
+                vnew[:, :, p] = vp - s[:, None] * (vq + tau[:, None] * vp)
+                vnew[:, :, q] = vq + s[:, None] * (vp - tau[:, None] * vq)
+                a = torch.where(do[:, None, None], new, a)
+                v = torch.where(do[:, None, None], vnew, v)
         sweeps += rotated.to(torch.int32)
         active &= rotated
-    lam = torch.diagonal(a, dim1=-2, dim2=-1)
-    ok = (lam.to(torch.float32) > thresh[:, None]) & finite[:, None]
+    lam = torch.diagonal(a, dim1=-2, dim2=-1).to(torch.float32)
+    ok = (lam > thresh[:, None]) & finite[:, None]
     P = (v * ok[:, None, :].to(v.dtype)) @ v.transpose(-2, -1)
     P = torch.where(screened[:, None, None], torch.eye(6, dtype=P.dtype, device=dev), P)
     n_con = torch.where(screened, 6, torch.sum(ok, dim=-1, dtype=torch.int32))

@@ -5,7 +5,5 @@ from .ml_system import (  # noqa: F401
     MultiLidarSystem,
     SystemConfig,
     build_featurize,
-    build_fused_step,
-    read_frame,
     tracker_config_for,
 )

@@ -1,36 +1,35 @@
 """System orchestration: raw scans in → trajectory + lifelong map out.
 
-Counterpart of ``lmsf_slam_tpu/system/ml_system.py``. With one LiDAR and no
-IMU the frame is the fused branch: ``preprocess`` → ``organize_scan`` →
-``extract_loam_features`` → ``tracker_step`` in one per-frame function
-(:func:`build_fused_step`); with ``registration_method=
-"sparse_point_plane_icp"`` the features are the preprocessed scan
-voxel-downsampled at ``icp_voxel_size`` into the surf capacity, with no edges
-(point-to-plane ICP against the local map). Otherwise the frame takes the
-reference's split path: the featurize half (:func:`build_featurize`) for each LiDAR, then the
-tracker. With several LiDARs the sub scans' extrinsics are calibrated online
-in three phases (hand-eye from per-LiDAR odometry, refinement against the
-primary's local map, then fused tracking of every LiDAR's features moved into
-the primary's frame), or given as ``extrinsics``. With ``use_imu`` the tracker
-is :class:`..lio.LioTracker` (ESKF propagation over the IMU window, deskew,
-registration with the IMU prediction, the filter's correction), and GNSS
-fixes fuse into the filter through :meth:`MultiLidarSystem.process_gnss`
-and ride the next keyframe as a graph prior. Either way: the host-side
-:class:`KeyframeGate` on the pose read back once per frame, the hand-off of
-keyframes to the lifelong backend (mapping, localization, loop closure,
-relocalization) either inline or, with ``async_backend``, through the worker
-thread of :class:`..backend.async_backend.AsyncBackend`, and a
-:class:`FrameResult` every frame (:class:`MultiLidarSystem`), with ``save``
-/ ``load`` of the lifelong database.
+Counterpart of ``lmsf_slam_tpu/system/ml_system.py``. Every frame takes one
+path, for one LiDAR or several, with or without an IMU: the featurize half
+(:func:`build_featurize`: ``preprocess`` → ``organize_scan`` →
+``extract_loam_features``) on each LiDAR's scan, the sub scans' features
+moved into the primary's frame (or the primary's alone, padded to the fused
+capacity, while the extrinsics are calibrated), then ``tracker_step``, or
+under ``use_imu`` :class:`..lio.LioTracker` (ESKF propagation over the IMU
+window, deskew, registration with the IMU prediction, the filter's
+correction), and ONE read-back of the frame's pose. With
+``registration_method="sparse_point_plane_icp"`` the features are the
+preprocessed scan voxel-downsampled at ``icp_voxel_size`` into the surf
+capacity, with no edges (point-to-plane ICP against the local map). With
+several LiDARs the sub scans' extrinsics are calibrated online in three
+phases (hand-eye from per-LiDAR odometry, refinement against the primary's
+local map, then fused tracking of every LiDAR's features moved into the
+primary's frame), or given as ``extrinsics``. GNSS fixes fuse into the
+filter through :meth:`MultiLidarSystem.process_gnss` and ride the next
+keyframe as a graph prior. Then the host-side :class:`KeyframeGate` on the
+pose read back, the hand-off of keyframes to the lifelong backend (mapping,
+localization, loop closure, relocalization) either inline or, with
+``async_backend``, through the worker thread of
+:class:`..backend.async_backend.AsyncBackend`, and a :class:`FrameResult`
+every frame (:class:`MultiLidarSystem`), with ``save`` / ``load`` of the
+lifelong database.
 
 ``SystemConfig`` carries every field of the reference's, so configurations
-move between the packages unchanged. ``build_fused_step`` and
-:func:`read_frame` remain the front end alone, with no backend behind the
-gate.
+move between the packages unchanged.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -224,7 +223,7 @@ def build_featurize(config: SystemConfig = SystemConfig(), device="cuda",
     attr)`` runs preprocess → organize → LOAM features on ``device`` and
     returns ``(edge, surf, grid)`` in the sensor frame (the grid is the
     scan's range image, for carving). It launches work and reads nothing
-    back. Both the fused step and the IMU-aided frame run it.
+    back. :class:`MultiLidarSystem` runs it on each LiDAR's scan a frame.
 
     With ``registration_method="sparse_point_plane_icp"`` the surf cloud is
     the preprocessed scan voxel-downsampled at ``icp_voxel_size`` into the
@@ -266,45 +265,6 @@ def build_featurize(config: SystemConfig = SystemConfig(), device="cuda",
     return featurize
 
 
-# the methods of the fused single-LiDAR step; any other value takes the split
-# path with LOAM features, as in the reference
-FUSED_METHODS = ("feature_based", "sparse_point_plane_icp")
-
-
-def build_fused_step(config: SystemConfig = SystemConfig(), device="cuda",
-                     organize: Optional[bool] = None, timer=None):
-    """(tracker config, per-frame step) of the fused single-LiDAR path.
-
-    ``step(state, xyz, mask, attr, t)`` runs preprocess → features
-    (:func:`build_featurize`, LOAM or ICP by ``registration_method``;
-    ``organize`` as there) → ``tracker_step`` on ``device`` and returns
-    ``(state, TrackerOutput, edge, surf, grid)``. It launches work and reads
-    nothing back; :func:`read_frame` does the one read per frame. A
-    ``timer`` (:class:`..utils.profiling.StageTimer`) records the two halves
-    as the spans ``frame.featurize`` and ``frame.track``.
-    """
-    if config.n_lidars != 1 or config.registration_method not in FUSED_METHODS:
-        raise ValueError(f"the fused step serves one LiDAR with a registration method of "
-                         f"{FUSED_METHODS}")
-    tracker_config = tracker_config_for(config)
-    device = torch.device(device)
-    featurize = build_featurize(config, device, organize)
-    span = timer if timer is not None else (lambda label: contextlib.nullcontext())
-
-    def step(state, xyz, mask, attr, t):
-        with span("frame.featurize"):
-            edge, surf, grid = featurize(xyz, mask, attr)
-        with span("frame.track"):
-            t = torch.as_tensor(t, dtype=torch.float32, device=device)
-            state, out = tracker_step(
-                state, edge, surf, t, tracker_config,
-                scan_grid=grid if tracker_config.carve_map else None,
-            )
-        return state, out, edge, surf, grid
-
-    return tracker_config, step
-
-
 def _read_back(out):
     """ONE device-to-host copy of a frame's pose, convergence flag and match
     count: (odom_pose (7,) float32, converged, num_matches)."""
@@ -315,26 +275,6 @@ def _read_back(out):
         reg.num_matches.to(torch.float32).reshape(1),
     ]).cpu().numpy()
     return packed[:7].astype(np.float32), bool(packed[7]), int(packed[8])
-
-
-def read_frame(out, gate: KeyframeGate, timestamp: float) -> FrameResult:
-    """Keyframe gate → FrameResult for the front end alone, with ONE
-    device-to-host copy. No backend stands behind the gate: the map frame is
-    the odometry frame (``map_pose`` equals ``odom_pose``), no keyframe is
-    stored, and ``mode`` is MAPPING, the mode of a run without a map."""
-    odom_pose, converged, num_matches = _read_back(out)
-    is_kf = gate.need_update(odom_pose, timestamp)
-    return FrameResult(
-        timestamp=float(timestamp),
-        odom_pose=odom_pose,
-        map_pose=odom_pose.copy(),
-        mode=WorkMode.MAPPING,
-        is_keyframe=is_kf,
-        keyframe_id=-1,
-        loop_closed=False,
-        converged=converged,
-        num_matches=num_matches,
-    )
 
 
 class MultiLidarSystem:
@@ -393,16 +333,9 @@ class MultiLidarSystem:
             from ..backend.async_backend import AsyncBackend
 
             self._async = AsyncBackend(self.backend, policy=config.async_policy)
-        # one LiDAR without an IMU: the fused step; otherwise the split path,
-        # featurize each scan, then the tracker (LioTracker under IMU). The
-        # ICP features organize a range image only for the backend's carving.
-        organize = self.backend.config.dynamic_carve_knn > 0
-        self._fused_step = None
-        if n == 1 and not config.use_imu and config.registration_method in FUSED_METHODS:
-            _, self._fused_step = build_fused_step(config, self.device, organize,
-                                                   self.timer)
-        else:
-            self._featurize = build_featurize(config, self.device, organize)
+        # the ICP features organize a range image only for the backend's carving
+        self._featurize = build_featurize(config, self.device,
+                                          self.backend.config.dynamic_carve_knn > 0)
         self._pending_gnss = None  # latest ENU fix, attached to the next keyframe
         self.gate = KeyframeGate(config.keyframe_trans, config.keyframe_rot, config.keyframe_dt)
         self.results: list[FrameResult] = []
@@ -562,10 +495,6 @@ class MultiLidarSystem:
             with self.timer("frame.handoff"):
                 return self._finish_frame(timestamp, read, edge, surf, scan_grid)
 
-    def _read(self, out):
-        with self.timer("frame.read_back"):
-            return _read_back(out)
-
     def _front_end(self, scan, timestamp, gyro, acc, imu_dts, wheel_speeds):
         """Featurize → track → the one read-back (→ calibrate): the
         (odom_pose, converged, num_matches) read back, and the frame's edge
@@ -573,14 +502,6 @@ class MultiLidarSystem:
         scans = scan if isinstance(scan, (list, tuple)) else [scan]
         if len(scans) != self.config.n_lidars:
             raise ValueError(f"expected {self.config.n_lidars} scans, got {len(scans)}")
-        if self._fused_step is not None:
-            # common path: one LiDAR, no IMU
-            s0 = scans[0]
-            self.tracker_state, out, edge, surf, scan_grid = self._fused_step(
-                self.tracker_state, s0.xyz, s0.mask, s0.attr, timestamp
-            )
-            return self._read(out), edge, surf, scan_grid
-
         with self.timer("frame.featurize"):
             feats = [self.featurize(s) for s in scans]
             scan_grid = feats[0][2]  # primary scan's range image (for carving)
@@ -596,7 +517,7 @@ class MultiLidarSystem:
                 edge = pb_concat(edges, capacity=n * f.edge_capacity)
                 surf = pb_concat(surfs, capacity=n * f.surf_capacity)
             else:
-                # calibration phases track the primary alone
+                # one LiDAR, or a calibration phase: the primary alone
                 edge, surf = self._pad_to_fused(feats[0][0], feats[0][1])
 
         with self.timer("frame.track"):
@@ -614,7 +535,8 @@ class MultiLidarSystem:
                     self.tracker_state, edge, surf, timestamp, self.tracker_config,
                     scan_grid=scan_grid if self.tracker_config.carve_map else None,
                 )
-        read = self._read(out)
+        with self.timer("frame.read_back"):
+            read = _read_back(out)
         if self.calib_status < 2:
             self._calibration_step(feats, read[0], timestamp)
         return read, edge, surf, scan_grid

@@ -12,7 +12,7 @@ and with a zero covariance; the tracker's
 window as it hands it over (strided slices of one copy). Two launches agree
 bit for bit, and each window is one launch.
 
-Tolerances (``chip_smoke.eskf_gaps``, which phase lio holds the kernel to
+Tolerances (``kernel_cases.eskf_gaps``, which phase lio holds the kernel to
 as well), float32 on both sides. The nominal state is rounded operation by
 operation as the plain version rounds it, but the plain version's cross
 products, 3×3 products and norms are torch kernels whose sums and fused
@@ -42,7 +42,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import kernel_cases
 from benchmark import traffic
 from benchmark.gen import city, imu
 from lmsf_slam_tpu_torch import _build
@@ -59,13 +59,13 @@ def _card():
     return torch.device("cuda")
 
 
-window = chip_smoke.eskf_window
+window = kernel_cases.eskf_window
 
 
 def start(kind):
     """The filter's state at rest, with an offset, or with the offset and a
     zero covariance."""
-    st = chip_smoke.eskf_start(kind != "rest", "cuda")
+    st = kernel_cases.eskf_start(kind != "rest", "cuda")
     return st._replace(cov=torch.zeros_like(st.cov)) if kind == "zero_cov" else st
 
 
@@ -76,13 +76,13 @@ def on(dev, *xs):
 def pair(st, gyro, acc, dts, config=pe.EskfConfig()):
     """(kernel, plain) of one window on the card, synchronised."""
     got = pe.eskf_propagate(st, gyro, acc, dts, config)
-    want = chip_smoke.eskf_plain(st, gyro, acc, dts, config)
+    want = kernel_cases.eskf_plain(st, gyro, acc, dts, config)
     torch.cuda.synchronize()
     return got, want
 
 
 def assert_close(got, want, what=""):
-    g = chip_smoke.eskf_gaps(got, want)
+    g = kernel_cases.eskf_gaps(got, want)
     assert max(g.values()) <= 1.0, f"{what}: gaps over their tolerances {g}"
     return g
 
@@ -148,7 +148,7 @@ def test_lio_window_slices_on_card():
     lio.eskf = start("offset")
     gyro, acc, dts = window(10, 11)
     got = lio._propagate(gyro, acc, dts)
-    want = chip_smoke.eskf_plain(lio.eskf, *on(dev, gyro, acc, dts), lio.config.eskf)
+    want = kernel_cases.eskf_plain(lio.eskf, *on(dev, gyro, acc, dts), lio.config.eskf)
     torch.cuda.synchronize()
     assert_close(got, want, "tracker window")
 

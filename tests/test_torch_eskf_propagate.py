@@ -4,20 +4,20 @@ tracker's ``_propagate`` returns what ``eskf_run`` returns for a window with
 and without wheel speeds. The kernel does no wheel update, so asking for one
 raises; so do an empty window and CPU tensors handed to the kernel's
 wrapper. The kernel itself is held to the plain version on the card
-(``tests/test_torch_eskf_cuda.py``) by ``chip_smoke.eskf_gaps``; here that
+(``tests/test_torch_eskf_cuda.py``) by ``kernel_cases.eskf_gaps``; here that
 comparison is shown to catch a propagation whose bias blocks take the wrong
 process noise, over windows of 1, 10 and 37 samples."""
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import kernel_cases
 from lmsf_slam_tpu_torch.common import se3
 from lmsf_slam_tpu_torch.estimator import eskf as pe
 from lmsf_slam_tpu_torch.lio.lio_tracker import LioConfig, LioTracker
 from tests import torch_threads  # noqa: F401
 
-window, start = chip_smoke.eskf_window, chip_smoke.eskf_start
+window, start = kernel_cases.eskf_window, kernel_cases.eskf_start
 
 
 def assert_bit_equal(got: pe.EskfState, want: pe.EskfState):
@@ -50,10 +50,10 @@ def test_gaps_catch_wrong_bias_noise_from_zero_covariance(n, fault):
     gyro, acc, dts = (torch.as_tensor(x) for x in window(n, 10 * n + 1))
     st = start(True)._replace(cov=torch.zeros(15, 15))
     config = pe.EskfConfig()
-    want = chip_smoke.eskf_plain(st, gyro, acc, dts, config)
-    got = chip_smoke.eskf_plain(st, gyro, acc, dts, config._replace(**WRONG_BIAS_RATES[fault]))
-    assert set(chip_smoke.eskf_gaps(want, want).values()) == {0.0}
-    gaps = chip_smoke.eskf_gaps(got, want)
+    want = kernel_cases.eskf_plain(st, gyro, acc, dts, config)
+    got = kernel_cases.eskf_plain(st, gyro, acc, dts, config._replace(**WRONG_BIAS_RATES[fault]))
+    assert set(kernel_cases.eskf_gaps(want, want).values()) == {0.0}
+    gaps = kernel_cases.eskf_gaps(got, want)
     assert gaps["cov"] > 1.0 and max(v for k, v in gaps.items() if k != "cov") == 0.0, gaps
 
 

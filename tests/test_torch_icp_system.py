@@ -5,8 +5,8 @@ scenario (its ``small_config``: 16 × 360 scans, 1152 surf points a frame,
 ``icp_voxel_size=0.5``) with the port's simulator, numpy-seeded, giving both
 packages the same scans.
 
-Each frame of the port's system (the fused step: preprocess → voxel
-downsample → ``tracker_step``, one read-back) is held to the reference's own
+Each frame of the port's system (preprocess → voxel downsample →
+``tracker_step``, one read-back) is held to the reference's own
 ``MultiLidarSystem.featurize`` (the ICP surf cloud bit-equal) and to the
 reference's ``tracker_step`` on those features evaluated in float64 (pose
 within 1e-4 m / 1e-4 rad, registration flags equal), as the port's other
@@ -66,10 +66,8 @@ def test_icp_frames_match_reference(course):
     traj, scans = course
     jcfg, pcfg = small_configs()
     port = psys.MultiLidarSystem(pcfg, device="cpu")
-    assert port._fused_step is not None  # one LiDAR, no IMU: the fused step
     featurize = psys.build_featurize(pcfg, "cpu")
     ref = jsys.MultiLidarSystem(jcfg)
-    assert ref._fused_step is None  # the reference takes its split path
     jtc = _reference_tracker_config(port.tracker_config)
     state64 = widen_state(jt.tracker_init(jtc))
     for i, scan in enumerate(scans[:N_COMPARED]):
@@ -105,7 +103,7 @@ def _assert_pose(got, want, i):
 def test_icp_organizes_a_range_image_only_for_carving():
     """With the backend's carving on, the ICP frame organizes the range
     image (the reference's ``featurize``); the two-LiDAR and IMU-aided
-    systems take the ICP features on their split path."""
+    systems featurize each scan the same way."""
     _, pcfg = small_configs()
     carve = pcfg._replace(lifelong=pcfg.lifelong._replace(dynamic_carve_knn=3))
     _, scans = sim_course(1, width=360)
@@ -113,7 +111,6 @@ def test_icp_organizes_a_range_image_only_for_carving():
     assert grid is not None and tuple(grid.xyz.shape[:2]) == (16, 360)
     for cfg in (pcfg._replace(n_lidars=2), pcfg._replace(use_imu=True)):
         system = psys.MultiLidarSystem(cfg, device="cpu")
-        assert system._fused_step is None
         e, s, g = system.featurize(_port_scan(scans[0]))
         assert g is None and not e.mask.any()
         np.testing.assert_array_equal(s.xyz.numpy(), surf.xyz.numpy())

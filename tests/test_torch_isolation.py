@@ -179,7 +179,7 @@ def test_every_entry_point_defaults_to_the_card():
             if param is not None and param.default is not inspect.Parameter.empty:
                 seen.append(fn.__qualname__)
                 assert param.default == "cuda", (mod.__name__, fn.__qualname__, param.default)
-    assert len(seen) >= 14, seen  # MultiLidarSystem, KeyframeDatabase, build_fused_step, ...
+    assert len(seen) >= 14, seen  # MultiLidarSystem, KeyframeDatabase, build_featurize, ...
 
 
 def _imports(path):

@@ -12,6 +12,7 @@ also runs on a machine that has PyTorch and CUDA but no JAX:
 import pytest
 import torch
 
+import kernel_cases
 from lmsf_slam_tpu_torch.ops import knn as pk
 
 CASES = [
@@ -34,19 +35,17 @@ CASES = [
                          [c[1:] for c in CASES], ids=[c[0] for c in CASES])
 def test_kernel_matches_plain_on_card(Q, N, k, q_invalid, r_valid, dup, splits):
     """``knn_cuda`` against ``knn_plain`` on the card (see
-    chip_smoke.compare_knn for the tolerances and the near-tie rule: the plain
+    ``kernel_cases.compare_knn`` for the tolerances and the near-tie rule: the plain
     version picks candidates by the expansion form, which cannot separate
     distances closer than its float32 rounding). The small cases must also
     equal the single-scan model bit for bit, ties included, and the result
     must not change with the lanes a query."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the k-NN kernels run only on one")
-    import chip_smoke
-
-    q, qm, r, rm = chip_smoke.knn_case(Q, N, q_invalid, r_valid, seed=Q + N + k,
-                                       dev=torch.device("cuda"), dup=dup)
-    chip_smoke.compare_knn(pk, q, qm, r, rm, k, exact_model=N <= 5000, dup=dup,
-                           splits=splits)  # raises on any disagreement
+    q, qm, r, rm = kernel_cases.knn_case(Q, N, q_invalid, r_valid, seed=Q + N + k,
+                                         dev=torch.device("cuda"), dup=dup)
+    kernel_cases.compare_knn(pk, q, qm, r, rm, k, exact_model=N <= 5000, dup=dup,
+                             splits=splits)  # raises on any disagreement
     d8, i8, _ = pk.knn_cuda(q, qm, r, rm, k, splits=splits, lanes=8)
     d4, i4, nbr = pk.knn_cuda(q, qm, r, rm, k, splits=2 if N >= 32 else 1, lanes=4,
                               neighbors=True)
@@ -60,15 +59,13 @@ def test_reference_views_off_16_byte_alignment():
     alignment must give the same result as its aligned copy."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the k-NN kernels run only on one")
-    import chip_smoke
-
-    q, qm, r, rm = chip_smoke.knn_case(200, 3001, 3, 0.8, seed=5, dev=torch.device("cuda"))
+    q, qm, r, rm = kernel_cases.knn_case(200, 3001, 3, 0.8, seed=5, dev=torch.device("cuda"))
     r_view, rm_view = r[1:], rm[1:]
     assert r_view.data_ptr() % 16 and rm_view.data_ptr() % 16 and r_view.is_contiguous()
     d, i, nbr = pk.knn_cuda(q, qm, r_view, rm_view, 5, splits=3, neighbors=True)
     d2, i2, nbr2 = pk.knn_cuda(q, qm, r_view.clone(), rm_view.clone(), 5, splits=3, neighbors=True)
     assert torch.equal(d, d2) and torch.equal(i, i2) and torch.equal(nbr, nbr2)
-    chip_smoke.compare_knn(pk, q, qm, r_view, rm_view, 5, exact_model=True)
+    kernel_cases.compare_knn(pk, q, qm, r_view, rm_view, 5, exact_model=True)
 
 
 @pytest.mark.cuda
@@ -77,6 +74,4 @@ def test_two_threads_launching_at_once_get_the_one_thread_results():
     (current stream and scratch taken per thread): bit-equal results."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the k-NN kernels run only on one")
-    import chip_smoke
-
-    assert chip_smoke.threads_check(pk, rounds=50) == 100
+    assert kernel_cases.threads_check(pk, rounds=50) == 100

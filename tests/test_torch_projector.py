@@ -2,9 +2,9 @@
 on the CPU: the plain version against the reference's
 ``lmsf_slam_tpu/ops/registration.py::_degeneracy_projector`` on the same
 numpy normal matrices, and the plain model of the CUDA kernel
-(``projector_jacobi_plain``: the screen, then the round-robin Jacobi) against
+(``projector_jacobi_plain``: the screen, then the cyclic Jacobi) against
 the plain version, on random normal matrices and on the boundary batch of
-``chip_smoke.projector_boundary_cases`` (diagonal matrices, exact in float32,
+``kernel_cases.projector_boundary_cases`` (diagonal matrices, exact in float32,
 whose smallest eigenvalue lies at, just under and just over the float32
 rounding midpoint above the floor).
 
@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import kernel_cases
 from lmsf_slam_tpu.ops import registration as jr
 from lmsf_slam_tpu_torch.ops import projector as pj
 from lmsf_slam_tpu_torch.ops import registration as tr
@@ -106,13 +106,13 @@ def test_screen_passes_only_clear_matrices(seed, axis):
     assert bool((sweeps[~screened] >= 1).all())
 
 
-@pytest.mark.parametrize("name", chip_smoke.PROJECTOR_BOUNDARY)
+@pytest.mark.parametrize("name", kernel_cases.PROJECTOR_BOUNDARY)
 def test_screen_at_the_floor(name):
     """The boundary batch: the model's counts equal ``eigh``'s, it screens
     exactly the matrices clear of the floor (never one whose smallest
     eigenvalue rounds to the floor or under, never a non-finite one), and
     gives P = I exactly where it screens."""
-    H, n, params = chip_smoke.projector_boundary_cases("cpu")[name]
+    H, n, params = kernel_cases.projector_boundary_cases("cpu")[name]
     args = (params.damping, params.degen_rel, params.degen_thresh)
     P_ref, c_ref = pj.projector_plain(H, n, *args)
     P, c, sweeps = pj.projector_jacobi_plain(H, n, *args)
@@ -120,13 +120,13 @@ def test_screen_at_the_floor(name):
     assert torch.equal(c, c_ref)
     assert torch.equal(torch.isnan(P), torch.isnan(P_ref))
     torch.testing.assert_close(torch.nan_to_num(P), torch.nan_to_num(P_ref), rtol=0, atol=1e-12)
-    assert tuple(screened.tolist()) == chip_smoke.PROJECTOR_BOUNDARY_SCREENED
+    assert tuple(screened.tolist()) == kernel_cases.PROJECTOR_BOUNDARY_SCREENED
     assert torch.equal(P[screened], torch.eye(6, dtype=torch.float64).expand(2, 6, 6))
     assert bool((c[screened] == 6).all()) and bool((sweeps == 0).all())  # diagonal
     # the eigenvalues of a diagonal A are its entries, exact: the smallest of
     # the first two sits at the midpoint, so float32 rounds it to the floor or
     # one step over, as the offset and the floor's last bit say
-    exact = chip_smoke.projector_exact_count(H, n, params)
+    exact = kernel_cases.projector_exact_count(H, n, params)
     assert torch.equal(c, exact)
     floor = np.float32(params.degen_thresh) if n is None else (
         np.float32(params.degen_rel) * np.float32(n[0].item()))
@@ -139,16 +139,16 @@ def test_screen_at_the_floor(name):
 
 @pytest.mark.parametrize("B,screened", [(1, 1), (1, 0), (4096, 3072), (4096, 0)])
 def test_bound_counts_the_function_not_the_sweeps(B, screened):
-    """``chip_smoke.projector_bound_ms`` counts what the function needs (a
+    """``kernel_cases.projector_bound_ms`` counts what the function needs (a
     proof for a screened matrix, a 6x6 eigendecomposition and P for the
     others), whatever sweeps the kernel took: at these sizes that is under
     the bytes, so the bound is H and the count read once, P and the count
     written once."""
-    ms, by = chip_smoke.projector_bound_ms(B, screened)
-    ops = (chip_smoke.PROJECTOR_SCREEN_OPS * screened
-           + chip_smoke.PROJECTOR_EIGH_OPS * (B - screened))
-    assert ops / chip_smoke.PEAK_FP64_FLOPS * 1e3 < ms
-    assert by == "bytes" and ms == pytest.approx(B * 440 / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+    ms, by = kernel_cases.projector_bound_ms(B, screened)
+    ops = (kernel_cases.PROJECTOR_SCREEN_OPS * screened
+           + kernel_cases.PROJECTOR_EIGH_OPS * (B - screened))
+    assert ops / kernel_cases.PEAK_FP64_FLOPS * 1e3 < ms
+    assert by == "bytes" and ms == pytest.approx(B * 440 / kernel_cases.PEAK_BYTES_PER_S * 1e3)
 
 
 def test_registration_takes_the_plain_version_on_the_cpu():

@@ -1,6 +1,7 @@
-"""The port's front-end frame as a whole: ``build_fused_step`` (preprocess →
-organize → LOAM features → ``tracker_step``) with the keyframe gate, against
-the reference composing the same public functions as its fused step
+"""The port's front-end frame as a whole: ``build_featurize`` (preprocess →
+organize → LOAM features), ``tracker_step`` and the frame's one read-back with
+the keyframe gate, as ``MultiLidarSystem.process`` runs them, against the
+reference composing the same public functions as its fused step
 (``lmsf_slam_tpu/system/ml_system.py``, ``_build_fused_step``), on the CPU.
 
 Small size: 16 rings × 360 columns, 192 edge and 768 surf features, a window
@@ -49,7 +50,7 @@ from lmsf_slam_tpu_torch.system import config as pconfig
 from lmsf_slam_tpu_torch.utils.profiling import StageTimer
 from lmsf_slam_tpu_torch.evaluation import metrics as pmetrics
 from lmsf_slam_tpu_torch.system import ml_system as psys
-from lmsf_slam_tpu_torch.tracker import tracker_init
+from lmsf_slam_tpu_torch.tracker import tracker_init, tracker_step
 from tests.test_torch_lifelong import LIFELONG, LOOP
 from tests.test_torch_tracker import assert_frame, reference_step64, sim_course, widen_state
 from tests import torch_threads  # noqa: F401
@@ -75,7 +76,8 @@ def _reference_tracker_config(tc):
 def test_fused_step_matches_reference():
     jcfg, pcfg = _configs()
     traj, scans = sim_course(N_FRAMES)
-    tc, step = psys.build_fused_step(pcfg, device="cpu")
+    tc = psys.tracker_config_for(pcfg)
+    featurize = psys.build_featurize(pcfg, device="cpu")
     jtc = _reference_tracker_config(tc)
     f = jcfg.feature
 
@@ -99,19 +101,21 @@ def test_fused_step_matches_reference():
     poses = []
     for i, (xyz, mask, attr) in enumerate(scans):
         t = 0.1 * i
-        state, out, edge, surf, _ = step(state, xyz, mask, attr, t)
+        edge, surf, _ = featurize(xyz, mask, attr)
+        state, out = tracker_step(state, edge, surf, t, tc)
         j_edge, j_surf = jax.tree.map(np.asarray, reference_front_end(xyz, mask, attr))
         for got, want in ((edge, j_edge), (surf, j_surf)):
             np.testing.assert_array_equal(got.mask.numpy(), want.mask)
             np.testing.assert_array_equal(got.xyz.numpy(), want.xyz)
         ref, want = reference_step64(ref, j_edge, j_surf, t, jtc)
         assert_frame(out, want, i)
-        res = psys.read_frame(out, pgate, t)
-        assert res.is_keyframe == jgate.need_update(np.asarray(want.pose, np.float32), t)
-        assert res.num_matches == int(want.registration.num_matches)
-        assert res.converged == bool(want.registration.converged)
-        np.testing.assert_array_equal(res.map_pose, res.odom_pose)
-        poses.append(res.odom_pose)
+        odom_pose, converged, num_matches = psys._read_back(out)
+        is_keyframe = pgate.need_update(odom_pose, t)
+        assert is_keyframe == jgate.need_update(np.asarray(want.pose, np.float32), t)
+        assert num_matches == int(want.registration.num_matches)
+        assert converged == bool(want.registration.converged)
+        np.testing.assert_array_equal(odom_pose, out.pose.numpy())
+        poses.append(odom_pose)
     assert pgate.accum_distance == pytest.approx(jgate.accum_distance, abs=1e-4)
     gt = se3np.pose_between(traj[:1], traj)
     assert pmetrics.ate_stats(np.stack(poses), gt).rmse < 0.15  # tests/test_system.py's bound
@@ -141,11 +145,38 @@ def test_front_end_config_defaults_match_reference():
             assert g == w, name
 
 
-def test_build_fused_step_serves_only_the_fused_path():
+FRAME_SPANS = ("frame.featurize", "frame.track", "frame.read_back", "frame.handoff")
+
+
+@pytest.mark.parametrize("method", ["feature_based", "sparse_point_plane_icp"])
+def test_one_lidar_process_is_featurize_then_tracker_step(method):
+    """With one LiDAR, ``MultiLidarSystem.process`` gives, frame by frame and
+    bit for bit, the odometry of ``build_featurize`` and ``tracker_step``
+    composed by hand on the same scans, and records the frame's four spans
+    once a frame, inside its ``frame`` span."""
     _, pcfg = _configs()
-    for bad in (pcfg._replace(n_lidars=2), pcfg._replace(registration_method="ndt")):
-        with pytest.raises(ValueError, match="fused step"):
-            psys.build_fused_step(bad, device="cpu")
+    pcfg = pcfg._replace(registration_method=method)
+    system = MultiLidarSystem(pcfg, device="cpu")
+    tc = psys.tracker_config_for(pcfg)
+    featurize = psys.build_featurize(pcfg, device="cpu")
+    state = tracker_init(tc, device="cpu")
+    _, scans = sim_course(N_FRAMES)
+    for i, scan in enumerate(scans):
+        t = 0.1 * i
+        edge, surf, grid = featurize(*scan)
+        state, out = tracker_step(state, edge, surf, t, tc,
+                                  scan_grid=grid if tc.carve_map else None)
+        res = system.process(_port_scan(scan), t)
+        np.testing.assert_array_equal(res.odom_pose, psys._read_back(out)[0], err_msg=str(i))
+    samples = system.timer.samples
+    assert len(samples["frame"]) == N_FRAMES
+    for label in FRAME_SPANS:
+        assert len(samples[label]) == N_FRAMES, label
+        for frame, span in zip(samples["frame"], samples[label]):
+            # a span's end from its start and its duration in float seconds: 1 µs slack
+            assert frame.start_ns <= span.start_ns, label
+            assert (span.start_ns + round(span * 1e9)
+                    <= frame.start_ns + round(frame * 1e9) + 1_000), label
 
 
 def test_keyframe_gate_matches_reference():
@@ -266,7 +297,7 @@ def test_unported_system_paths_are_rejected(tmp_path):
     # load (the database lands on the device that load names)
     f = pcfg.feature
     dual = MultiLidarSystem(pcfg._replace(n_lidars=2), device="cpu")
-    assert dual.calib_status == 0 and dual.extrinsics == [None] and dual._fused_step is None
+    assert dual.calib_status == 0 and dual.extrinsics == [None]
     assert (dual.tracker_config.surf_capacity, dual.backend.db.surf_capacity,
             dual._sub_config.surf_capacity) == (2 * f.surf_capacity, 2 * f.surf_capacity,
                                                 f.surf_capacity)
@@ -285,7 +316,6 @@ def test_unported_system_paths_are_rejected(tmp_path):
     assert psys.FrameResult._fields == jsys.FrameResult._fields
     icp = MultiLidarSystem(pcfg._replace(registration_method="sparse_point_plane_icp"),
                            device="cpu")
-    assert icp._fused_step is not None
     _, scans = sim_course(1)
     res = icp.process(_port_scan(scans[0]), 0.0)
     assert np.isfinite(res.odom_pose).all() and np.isfinite(res.map_pose).all()

@@ -123,11 +123,10 @@ def test_spans_share_the_profilers_clock(run):
 
 @pytest.mark.parametrize("path", ["split", "lio"])
 def test_every_path_of_process_records_the_frame_spans(path):
-    """The split path (two LiDARs, the hand-eye phase) and the IMU-aided
-    path, on the sync backend; the fused single-LiDAR step is ``run``'s."""
+    """Two LiDARs (the hand-eye phase) and the IMU-aided frame, on the sync
+    backend; one LiDAR without an IMU is ``run``'s."""
     kw = dict(n_lidars=2) if path == "split" else dict(use_imu=True)
     system = MultiLidarSystem(config(**kw), device="cpu")
-    assert system._fused_step is None
     frames = scans(2)
     for i, s in enumerate(frames):
         system.process([s, s] if path == "split" else s, 0.1 * i)
